@@ -37,6 +37,9 @@ def run(engine: FlexLight, name: str, default_frames: int = 4,
     file, persisted knobs are restored before the run and saved after
     (the loader.js localStorage analogue).
     """
+    from flexlight_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     frames = int(sys.argv[1]) if len(sys.argv) > 1 else default_frames
     size = int(sys.argv[2]) if len(sys.argv) > 2 else default_size
     out = sys.argv[3] if len(sys.argv) > 3 else f"{name}_out.png"

@@ -1,10 +1,10 @@
-"""FlexLight-TPU: a TPU-native real-time render engine.
+"""FlexLight-TPU: a real-time render engine in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of FlexLight
+A ground-up JAX/XLA rebuild of the capabilities of FlexLight
 (`arbobendik/web-ray-tracer`): a Monte-Carlo path tracer and a direct-
 lighting rasterizer-equivalent over a scene graph of triangles / planes /
 cuboids with PBR materials, temporal accumulation, edge-aware denoising,
-and FXAA/TAA post-processing — designed for TPU hardware (batched ray
+and FXAA/TAA post-processing — built from batched ray
 wavefronts, packet BVH traversal, image-tile sharding over a device mesh).
 """
 

@@ -1,6 +1,6 @@
 """Render configuration.
 
-TPU-native counterpart of `modules/config.js:1-16`: same knob names and
+Counterpart of `modules/config.js:1-16`: same knob names and
 defaults. The config is consumed at jit-compile time (every field shapes
 the compiled program), so it is a frozen, hashable dataclass — changing a
 knob triggers a recompile, mirroring the reference's shader-recompile-on-
@@ -23,10 +23,9 @@ class Config:
     temporal: bool = True
     temporal_samples: int = 4
     filter: bool = False
-    # Denoise-chain flavor (not a reference knob — the TPU-first product
-    # mode): "fast" tile-quantizes the per-pixel blur radius key
-    # (post.common.tileize_blur_key) so the filter kernels' offset
-    # skipping and active-tile compaction engage; "compat" replicates the
+    # Denoise-chain flavor (not a reference knob): "fast" tile-quantizes
+    # the per-pixel blur radius key (post.common.tileize_blur_key) to its
+    # per-tile mean; "compat" replicates the
     # reference's per-pixel key arithmetic-exactly (the parity-proof
     # mode). Edge-stopping gates are identical in both modes.
     filter_mode: str = "fast"

@@ -1,6 +1,6 @@
 """Engine facade.
 
-TPU-native counterpart of `flexlight.js:13-142`: holds camera / config /
+Counterpart of `flexlight.js:13-142`: holds camera / config /
 scene / renderer and hot-swaps the renderer family by string key. The
 `api` axis ('webgl2' | 'webgpu') of the reference selected between two GPU
 backends of the same renderer; here it selects between the full pipeline

@@ -1,6 +1,6 @@
 """Interaction layer: fly-camera IO and center-ray object picking.
 
-TPU-native counterparts of `modules/io.js` (pointer-lock WASD fly camera —
+Counterparts of `modules/io.js` (pointer-lock WASD fly camera —
 here a headless key-state integrator with the same axis map and integration
 math) and `modules/ui.js` (CPU ray-pick over the scene graph using the host
 ray/triangle test).

@@ -1,6 +1,6 @@
 """Rasterizer-equivalent renderer: single-bounce direct lighting.
 
-TPU-native counterpart of `modules/rasterizerWGL2.js` +
+Counterpart of `modules/rasterizerWGL2.js` +
 `shaders/rasterizer_fragment.glsl`: the same scene-buffer contract, primary
 visibility (here by ray cast instead of instanced rasterization), per-light
 Cook-Torrance with shadow rays through the same skip-pointer traversal,
@@ -27,8 +27,9 @@ from ..ops.buffers import build_scene_buffers, fetch_tex_val
 from ..ops.geometry import world_geometry
 from ..ops.intersect import BIAS
 from ..ops.pathtrace import camera_rays
+from ..ops.schemes import check_scheme, resolve_scheme
 from ..post.common import quantize_rgba8, reinhard_gamma
-from ..post.fxaa import fxaa_auto
+from ..post.fxaa import fxaa
 from ..post.taa import Jitter, TAAState, taa_apply
 
 
@@ -41,7 +42,7 @@ def _shade(buffers, cam_pos, hit, shadow_fn, n, config):
     uvw = jnp.stack([1.0 - hit.suv[:, 1] - hit.suv[:, 2],
                      hit.suv[:, 1], hit.suv[:, 2]], axis=-1)
 
-    # Full-row gathers (row+slice gathers serialize on TPU, see pathtrace.py)
+    # Full-row gathers, then column slices
     t_idx = buffers.geometry[tri][:, 9].astype(jnp.int32)
     rot_f = buffers.rotations[t_idx][:, 0]
     shift_f = buffers.shifts[t_idx][:, 0]
@@ -143,6 +144,7 @@ def _blend_layers(layers_data):
                                    "tile", "layers"))
 def raster_frame(buffers, cam_pos, view, taa_state, width, height, config,
                  scheme="scan", tile=1024, layers: int = 1):
+    check_scheme(scheme)
     world_geom = world_geometry(buffers)
     if scheme == "mxu":
         from ..ops.traverse_mxu import build_tri_matrix, shadow_mxu, traverse_mxu
@@ -151,45 +153,6 @@ def raster_frame(buffers, cam_pos, view, taa_state, width, height, config,
         traverse_fn = lambda o, d: traverse_mxu(w, buffers.id_buffer, o, d,
                                                 edge=-BIAS)
         shadow_fn = lambda o, d, l: shadow_mxu(w, o, d, l)
-    elif scheme == "kernel":
-        import jax as _jax
-
-        from ..ops.intersect_kernel import (build_w4, pick_tri_tile,
-                                            shadow_kernel, traverse_kernel)
-
-        tri_tile = pick_tri_tile(buffers.id_buffer.shape[0])
-        w4, amin, amax, ids = build_w4(world_geom, buffers.id_buffer, tri_tile)
-        interp = _jax.default_backend() == "cpu"
-        sort = (ids.shape[0] // tri_tile) >= 8
-        traverse_fn = lambda o, d: traverse_kernel(w4, amin, amax, ids, o, d,
-                                                   interpret=interp, tri_tile=tri_tile,
-                                                   sort_rays=sort, edge=-BIAS)
-        shadow_fn = lambda o, d, l: shadow_kernel(w4, amin, amax, ids, o, d, l,
-                                                  interpret=interp, tri_tile=tri_tile,
-                                                  sort_rays=sort)
-    elif scheme == "sparse":
-        import jax as _jax
-
-        from ..ops.intersect_sparse import (build_w4_tiled, shadow_sparse,
-                                            traverse_sparse)
-
-        w4t, amin, amax, w4f = build_w4_tiled(world_geom, buffers.id_buffer)
-        interp = _jax.default_backend() == "cpu"
-        sort = w4t.shape[0] >= 8
-        idb = buffers.id_buffer
-
-        def traverse_fn(o, d):
-            hit = traverse_sparse(w4t, w4f, amin, amax, o, d,
-                                  interpret=interp, sort_rays=sort, edge=-BIAS)
-            # sparse reports drawable indices; shading tables are
-            # slot-indexed here, so map back through id_buffer
-            slot = jnp.where(hit.triangle >= 0,
-                             idb[jnp.maximum(hit.triangle, 0)], -1)
-            return hit._replace(triangle=slot.astype(jnp.int32))
-
-        def shadow_fn(o, d, l):
-            return shadow_sparse(w4t, amin, amax, o, d, l, interpret=interp,
-                                 sort_rays=sort)
     elif scheme == "clustered":
         from ..ops.traverse_clustered import (build_clusters, shadow_clustered,
                                               traverse_clustered)
@@ -244,7 +207,7 @@ def raster_frame(buffers, cam_pos, view, taa_state, width, height, config,
         aa_in = jnp.concatenate([quantize_rgba8(display),
                                  quantize_rgba8(alpha_img)[..., None]], axis=-1)
         if config.antialiasing == "fxaa":
-            display = fxaa_auto(aa_in)[..., 0:3]
+            display = fxaa(aa_in)[..., 0:3]
         else:
             out, taa_state = taa_apply(taa_state, aa_in)
             display = out[..., 0:3]
@@ -253,8 +216,6 @@ def raster_frame(buffers, cam_pos, view, taa_state, width, height, config,
 
 class Rasterizer:
     type = "rasterizer"
-
-    MXU_MAX_TRIS = 8192
 
     def __init__(self, width, height, scene, camera, config,
                  scheme: str = "auto", tile: int = 1024):
@@ -359,15 +320,7 @@ class Rasterizer:
         if self.config.antialiasing == "taa":
             jitter = self._jitter.next(self.width, self.height)
         view = self.camera.view_matrix(self.width, self.height, jitter)
-        scheme = self.scheme
-        if scheme == "auto":
-            n_tris = self._buffers.id_buffer.shape[0]
-            if jax.default_backend() == "cpu":
-                scheme = "mxu" if n_tris <= self.MXU_MAX_TRIS else "clustered"
-            elif n_tris >= 4096:
-                scheme = "sparse"
-            else:
-                scheme = "kernel"
+        scheme = resolve_scheme(self.scheme, self._buffers.id_buffer.shape[0])
         layers = max(int(self.layers), 1) if self._has_translucency else 1
         display, self._taa_state = raster_frame(
             self._buffers, jnp.asarray(self.camera.position), jnp.asarray(view),

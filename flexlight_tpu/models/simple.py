@@ -1,6 +1,6 @@
 """Simple renderer — WGPU-backend parity mode.
 
-TPU-native counterpart of `modules/pathtracerWGPU.js` +
+Counterpart of `modules/pathtracerWGPU.js` +
 `shaders/pathtracer.wgsl`: the reference's WebGPU backend only implements
 shadowed diffuse against lights[0] (pathtracer.wgsl:221-238) — flat first
 vertex normal, inline albedo, 0.1x albedo in shadow, no bounces, no post.

@@ -23,9 +23,8 @@ import numpy as np
 ATLAS_WIDTH_PX = 2048  # pathtracerWGL2.js:93
 
 # Texel tables at or below this row count are fetched with an exact one-hot
-# MXU contraction instead of an XLA gather. On the chip, a 2M-index gather
-# costs ~3-5 ms even from a tiny table (scalar-core bound), while the
-# one-hot matmul at K<=64 fuses to ~0 ms.
+# contraction instead of an XLA gather. The threshold was tuned for an
+# earlier accelerator and is not measured on the H100 (see ROADMAP.md).
 ONE_HOT_TEXELS = 64
 ONE_HOT_SLOTS = 64
 
@@ -139,7 +138,7 @@ def build_atlas_table(textures, standard_size) -> AtlasTable:
 
 def fetch_tex_val_table(table: AtlasTable, u, v, tex_num, default3):
     """`fetch_tex_val_soa` over an AtlasTable — value-identical, but the
-    gather runs against the compact texel list (or an exact one-hot MXU
+    gather runs against the compact texel list (or an exact one-hot
     contraction when the list is tiny)."""
     texels, tile_info, meta = table
     k = texels.shape[0]
@@ -188,20 +187,9 @@ def fetch_tex_val_table(table: AtlasTable, u, v, tex_num, default3):
         return tuple(jnp.where(miss, d, sampled[..., c])
                      for c, d in enumerate(default3))
     else:
-        # The 2M-index row gather is a hard ~4.4 ms floor on this chip
-        # (scripts/bench_fetch_bisect.py — ~2 cycles/row, table size and
-        # barriers irrelevant). The avoidable part is the traffic of the
-        # lane-padded [N, 3] result (minor dim 3 pads to 128 lanes):
-        # slice per channel BEFORE any f32 cast so every strided read
-        # stays in u8 (4x less physical traffic than a cast-first
-        # [N, 3] f32 intermediate); values identical (cast/slice
-        # commute). FLEXLIGHT_TEX_PAD4 gathers 4-byte-aligned rows
-        # instead (A/B knob for the gather engine's row alignment).
-        import os as _os
-
-        if (texels.dtype == jnp.uint8
-                and _os.environ.get("FLEXLIGHT_TEX_PAD4", "") == "1"):
-            texels = jnp.pad(texels, ((0, 0), (0, 1)))
+        # slice per channel BEFORE any f32 cast so the [N, 3] u8 gather
+        # result is never widened as a whole (values identical: cast and
+        # slice commute)
         sampled = texels[idx]
         ch = tuple(sampled[..., c].astype(jnp.float32) for c in range(3))
         if texels.dtype == jnp.uint8:
@@ -252,9 +240,7 @@ def fetch_tex_val(atlas: jnp.ndarray, uv: jnp.ndarray, tex_num: jnp.ndarray,
     cy = (uv[..., 1] + jnp.floor(tex_num / texture_width)) * height_factor / texture_width
     px = jnp.floor(jnp.mod(cx, 1.0) * w).astype(jnp.int32).clip(0, w - 1)
     py = jnp.floor(jnp.mod(cy, 1.0) * h).astype(jnp.int32).clip(0, h - 1)
-    # flat row gather: a two-axis atlas[py, px] gather leaves the TPU
-    # vectorized gather path; the barrier keeps the computed index from
-    # fusing into the gather (which demotes it to the scalar core)
+    # flat row gather over the [H*W, C] view of the atlas
     flat_idx = jax.lax.optimization_barrier(py * w + px)
     sampled = atlas.reshape(h * w, atlas.shape[-1])[flat_idx]
     return jnp.where((tex_num == -1.0)[..., None], default, sampled)

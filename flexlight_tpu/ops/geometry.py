@@ -1,10 +1,10 @@
 """Per-frame geometry world-transform pass.
 
-TPU-first design departure from the reference: the GLSL traversal re-bases
+Design departure from the reference: the GLSL traversal re-bases
 the *ray* into each node's object space whenever the transform id changes
 (pathtracer_fragment.glsl:193-203). That is the right call for a scalar
-per-pixel kernel, but on TPU it would put a mat3 gather+matvec inside the
-innermost traversal loop of every ray.
+per-pixel kernel, but in a batched wavefront it would put a mat3
+gather+matvec inside the innermost traversal loop of every ray.
 
 Instead we bake transforms into the geometry once per frame: a single
 vectorized [S]-wide pass producing world-space triangles and conservative
@@ -29,7 +29,7 @@ def world_geometry(buffers: SceneBuffers) -> jnp.ndarray:
     """geometry [S,12] + transforms -> world-space geometry [S,12]."""
     g = buffers.geometry
     t_idx = g[:, 9].astype(jnp.int32)
-    # Full-row gathers (row+slice gathers serialize on TPU, see pathtrace.py)
+    # Full-row gathers, then column slices
     rot = buffers.rotations[t_idx][:, 0]   # [S, 3, 3] forward rotation*scale
     pos = buffers.shifts[t_idx][:, 0]      # [S, 3]
     kind = g[:, 10]

@@ -1,6 +1,6 @@
 """Ray-primitive intersection tests (vectorized, jnp).
 
-TPU-native counterparts of the device routines in
+Counterparts of the device routines in
 `shaders/pathtracer_fragment.glsl`:
 
 - moeller_trumbore       — full two-sided test (glsl:123-140)

@@ -1,6 +1,6 @@
 """Wavefront path tracer core.
 
-TPU-native re-design of the reference's fragment-shader megakernel
+Re-design of the reference's fragment-shader megakernel
 (`shaders/pathtracer_fragment.glsl:400-646`). One GLSL invocation per pixel
 becomes one jitted pure function over the whole ray batch [N = H*W]:
 
@@ -16,16 +16,16 @@ becomes one jitted pure function over the whole ray batch [N = H*W]:
   reproduced, in fp32 (quantization to RGBA8 happens in the post layer's
   compat mode).
 
-All math is elementwise over [N]-wide arrays — pure VPU work, fully fused
-by XLA; traversal is delegated to ops.traverse.
+All math is elementwise over [N]-wide arrays, fused by XLA; traversal is
+delegated to the scheme's cast (ops.traverse, ops.traverse_mxu,
+ops.traverse_clustered).
 """
 
 from __future__ import annotations
 
-import os
-from functools import partial
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from . import traverse as trv
@@ -35,27 +35,19 @@ from .buffers import SceneBuffers, fetch_tex_val_soa, fetch_tex_val_table
 from .geometry import world_geometry
 from .intersect import BIAS
 from .rng import noise4
+from .schemes import check_scheme
 
 INV_255 = 1.0 / 255.0
 INV_PI = 0.3183098861837907
 
-# Perf-bisection switches (testing/profiling only): names added here skip
-# parts of the bounce body. Empty in production.
-DEBUG_DISABLE: set = set()
-# Eager-mode wavefront capture (scripts/analyze_wavefront.py): when set to
-# a dict and render_mrt runs OUTSIDE jit, each bounce's (origin3, dir3,
-# alive) is appended under "bounces" for sort-key analysis.
-DEBUG_CAPTURE: dict | None = None
-# Ray-tile width for INCOHERENT (bounce/shadow) sparse traversals; primary
-# casts keep the full 1024. Smaller tiles tighten candidate unions
-# (analyze_wavefront: 88 -> 63 tiles at 512) at the cost of more grid
-# steps. Read at trace time (like DEBUG_DISABLE) — a perf experiment
-# knob, not a config field, until the chip-side sweep picks a winner.
-SPARSE_BOUNCE_RAY_TILE: int = 1024
-
-# Scenes below this triangle count have too few triangle tiles for cluster
-# culling to matter; block-tiled ray order is skipped (tests lower it).
+# Scenes below this triangle count have too few clusters for culling to
+# matter; block-tiled ray order is skipped (tests lower it). Tuned on an
+# earlier accelerator; not measured on the H100.
 BLOCK_TILE_MIN_TRIS = 2048
+
+# Ray count from which shading runs on [G, 1024] 2-D shapes (tests lower
+# it). Tuned on an earlier accelerator; not measured on the H100.
+SHADE_2D_MIN_RAYS = 1_500_000
 
 # Light count at which reservoir NEE switches from an unrolled light loop
 # (fully fused) to a lax.scan over the light axis (bounded compile time —
@@ -126,9 +118,7 @@ def camera_rays(width: int, height: int, position, view_matrix,
 
 class ReservoirPick(NamedTuple):
     """Reservoir-selection outputs (glsl:400-447): the shadow-ray request
-    plus everything `reservoir_finish` consumes after the shadow test.
-    Splitting at the shadow ray lets a kernel pipeline run the selection
-    loop in one program and the traversal elsewhere."""
+    plus everything `reservoir_finish` consumes after the shadow test."""
     local_color: tuple
     res_num: jnp.ndarray
     show_color: jnp.ndarray
@@ -152,29 +142,21 @@ def reservoir_finish(pick: ReservoirPick, emis, shadowed):
 def reservoir_sample(buffers: SceneBuffers, albedo3, rough, metal, emis,
                      origin3, unit_dir3, random_vec4, n_rough3, n_smooth3,
                      geometry_offset, random_seed, shadow_soa, alive_mask=None,
-                     force_unroll: bool = False, rng_mode: str = "hash"):
+                     rng_mode: str = "hash"):
     """Weighted reservoir NEE over all lights + one shadow ray
     (glsl:400-461), SoA form (see ops.vec3). Returns (color 3-tuple, id_w
-    [N]). `force_unroll` keeps the light loop unrolled past
-    SCAN_LIGHTS_MIN (the fused Pallas path cannot lower lax.scan).
-    Composition of reservoir_select -> shadow -> reservoir_finish."""
+    [N]). Composition of reservoir_select -> shadow -> reservoir_finish."""
     pick = reservoir_select(buffers, albedo3, rough, metal, emis, origin3,
                             unit_dir3, random_vec4, n_rough3, n_smooth3,
-                            geometry_offset, random_seed,
-                            force_unroll=force_unroll, rng_mode=rng_mode)
-    shp = origin3[0].shape
-    if "shadow" in DEBUG_DISABLE:
-        shadowed = jnp.zeros(shp, dtype=bool)
-    else:
-        shadowed = shadow_soa(pick.offset_target, pick.light_dir,
-                              pick.max_len, alive=alive_mask)
+                            geometry_offset, random_seed, rng_mode=rng_mode)
+    shadowed = shadow_soa(pick.offset_target, pick.light_dir, pick.max_len,
+                          alive=alive_mask)
     return reservoir_finish(pick, emis, shadowed)
 
 
 def reservoir_select(buffers: SceneBuffers, albedo3, rough, metal, emis,
                      origin3, unit_dir3, random_vec4, n_rough3, n_smooth3,
                      geometry_offset, random_seed,
-                     force_unroll: bool = False,
                      rng_mode: str = "hash") -> ReservoirPick:
     """The reservoir light loop + selection, up to (and excluding) the
     shadow ray (glsl:400-447)."""
@@ -220,25 +202,7 @@ def reservoir_select(buffers: SceneBuffers, albedo3, rough, metal, emis,
 
     carry = (local_color, res_length, total_weight, res_num, res_weight,
              res_dir, lr)
-    if force_unroll == "fori":
-        # many lights INSIDE a Pallas kernel: Mosaic cannot lower
-        # lax.scan, but fori_loop + an exact one-hot row contraction
-        # (HIGHEST -> bf16x6, lossless) lowers fine and keeps compile
-        # time bounded — same sequential arithmetic as the scan
-        import jax
-        from jax import lax
-
-        lights6 = buffers.lights.reshape(num_lights, 6)
-        iota = lax.broadcasted_iota(jnp.int32, (1, num_lights), 1)
-
-        def fori_body(j, carry):
-            onehot = (iota == j).astype(jnp.float32)
-            row6 = jnp.dot(onehot, lights6,
-                           precision=jax.lax.Precision.HIGHEST)
-            return light_step(carry, j, row6.reshape(2, 3))
-
-        carry = lax.fori_loop(0, num_lights, fori_body, carry)
-    elif num_lights < SCAN_LIGHTS_MIN or force_unroll:
+    if num_lights < SCAN_LIGHTS_MIN:
         # few lights: unroll so XLA fuses the whole chain into the bounce
         for j in range(num_lights):
             carry = light_step(carry, j, buffers.lights[j])
@@ -246,8 +210,6 @@ def reservoir_select(buffers: SceneBuffers, albedo3, rough, metal, emis,
         # many lights (example2.js's 64-light stress): the unrolled chain
         # explodes compile time; a scan over the light axis is the same
         # sequential arithmetic (the reservoir noise chain forces order)
-        import jax
-
         carry = jax.lax.scan(
             lambda c, jl: (light_step(c, jl[0], jl[1]), None),
             carry, (jnp.arange(num_lights, dtype=jnp.int32), buffers.lights),
@@ -268,8 +230,7 @@ def reservoir_select(buffers: SceneBuffers, albedo3, rough, metal, emis,
 def build_material_table(buffers: SceneBuffers, world_geom) -> jnp.ndarray:
     """Per-triangle shading row [T, 49]: world geometry (12), attributes
     (28), forward rotation (9) — one wide row gather per bounce instead of
-    five (geometry/rotations/shifts/world_geom/attributes); TPU gathers
-    move whole rows, so width is nearly free while row count is not."""
+    five (geometry/rotations/shifts/world_geom/attributes)."""
     t_idx = buffers.geometry[:, 9].astype(jnp.int32)
     rot_f = buffers.rotations[t_idx][:, 0].reshape(-1, 9)
     return jnp.concatenate([world_geom, buffers.attributes, rot_f], axis=1)
@@ -278,26 +239,18 @@ def build_material_table(buffers: SceneBuffers, world_geom) -> jnp.ndarray:
 def fetch_rows_t(mat: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """mat[idx] transposed to a leading channel axis: [C, *idx.shape].
 
-    The naive gather + .T keeps the row-major layout, so every SoA row
-    read downstream is strided, and XLA decomposes the fused
-    gather-transpose into scalar-core column gathers. For small tables the
-    whole fetch becomes a one-hot MXU matmul (exact: one 1.0 per column);
-    otherwise an optimization barrier forces a real relayout after the
-    vectorized row gather.
+    For small tables the whole fetch is a one-hot matmul (exact: one 1.0
+    per column); otherwise an optimization barrier forces a real relayout
+    after the row gather, so SoA row reads downstream are contiguous.
 
     With 2-D [G, 1024] ray shapes the result is [C, G, 1024]: row reads
-    are then leading-dim slices of a natively tiled array. Extracting a
-    row of a [C, N] array compiles to a degenerate [1, N] -> [N] relayout
-    that costs ~8 ms per 2M rays (measured) — never do that in a loop."""
-    import jax
-
+    are then leading-dim slices."""
     t = mat.shape[0]
     flat = idx.reshape(-1)
     n = flat.shape[0]
     # One-hot cap is memory-based: the [t, n] f32 one-hot materializes in
-    # HBM, so bound t*n (536 MB) rather than n alone — at 1080p (2M rays)
-    # small-table scenes (theater: 20 drawables) stay on the MXU path,
-    # which beats the row gather ~50 ms -> ~1 ms per bounce.
+    # device memory, so bound t*n (512 MiB) rather than n alone. Tuned on
+    # an earlier accelerator; not measured on the H100.
     if t <= 256 and t * n <= (1 << 27):
         onehot = (flat[None, :] == jnp.arange(t, dtype=flat.dtype)[:, None])
         out = jnp.dot(mat.T, onehot.astype(mat.dtype),
@@ -319,9 +272,7 @@ def combine_normal_rme_soa(n3, rough, metal, emis):
 class BounceCarry(NamedTuple):
     """Loop-carried wavefront state of the bounce loop: the GLSL
     per-pixel locals (glsl:464-599) plus the shader globals threaded via
-    `aux`. Exposed so a split pipeline (ops.fused's planned per-bounce
-    kernels) can cross HBM between stages; plain light_trace threads it
-    through the three bounce stages below."""
+    `aux`; light_trace threads it through the bounce stages below."""
     alive: jnp.ndarray
     tri: jnp.ndarray
     hs: jnp.ndarray
@@ -375,30 +326,18 @@ def bounce_carry_init(primary_parts, camera_pos, direction3, aux) -> BounceCarry
         first_ray_length=first_ray_length)
 
 
-def bounce_pre(carry: BounceCarry, i: int, mat, config, fetch_rows_fn=None):
+def bounce_pre(carry: BounceCarry, i: int, mat, config):
     """Bounce stage 1 (glsl:475-526): importance kill, material row
     fetch, hit-point update, normal interpolation, texture coords.
     Returns (carry, BounceSurface)."""
-    fetch_rows_fn = fetch_rows_t if fetch_rows_fn is None else fetch_rows_fn
     shp = carry.hs.shape
     zero = jnp.zeros(shp, dtype=jnp.float32)
     importance_len = v3.norm3(v3.mul3(carry.importancy, carry.original_color))
     alive = carry.alive & (importance_len >= config.min_importancy * SQRT3)
     m = alive
-    tri = carry.tri
 
-    # NB: gather full rows, then transpose once — per-column extracts
-    # from a [N, 49] row-major array re-read whole lane tiles, and a
-    # fused row+column-slice gather falls off TPU's vectorized path.
-    if "matfetch" in DEBUG_DISABLE:
-        # ablation: broadcast row 0 instead of gathering — isolates
-        # the gather+relayout cost of the per-bounce material fetch.
-        # Per-scalar broadcasts (not a 1-D row reshape) so the stub also
-        # lowers inside Mosaic kernels with brick-shaped channels.
-        rowt = [jnp.broadcast_to(mat[0, k], tri.shape)
-                for k in range(mat.shape[1])]
-    else:
-        rowt = fetch_rows_fn(mat, tri)      # [49, N]
+    # gather full rows, then read channels from the relaid [49, N] table
+    rowt = fetch_rows_t(mat, carry.tri)
     rot = tuple(rowt[40 + k] for k in range(9))
 
     new_origin = v3.add3(v3.scale3(carry.ray_dir, carry.hs), carry.ray_origin)
@@ -410,27 +349,22 @@ def bounce_pre(carry: BounceCarry, i: int, mat, config, fetch_rows_fn=None):
     geometry_normal = v3.normalize3(v3.cross3(
         v3.sub3(wv[0], wv[1]), v3.sub3(wv[0], wv[2])))
 
-    if "interp" in DEBUG_DISABLE:
-        smooth_normal = geometry_normal
-        geometry_offset = zero
-        bary_u, bary_v = carry.hu, carry.hv
-    else:
-        smooth_normal = (zero, zero, zero)
-        geometry_offset = zero
-        bary_u = zero
-        bary_v = zero
-        for k in range(3):
-            vn = (rowt[12 + 3 * k], rowt[13 + 3 * k], rowt[14 + 3 * k])
-            wn = v3.matvec3(rot, vn)
-            smooth_normal = v3.add3(smooth_normal, v3.scale3(wn, uvw[k]))
-            # tan(acos(x)) = sqrt(1-x^2)/x — shadow-acne offset (glsl:516-518)
-            cos_a = jnp.abs(jnp.clip(v3.dot3(geometry_normal, wn), -1.0, 1.0))
-            tan_a = jnp.clip(jnp.sqrt(1.0 - cos_a * cos_a) / cos_a, 0.0, 1.0)
-            diff = v3.norm3(v3.sub3(ray_origin, wv[k]))
-            geometry_offset = geometry_offset + diff * tan_a * uvw[k]
-            bary_u = bary_u + rowt[21 + 2 * k] * uvw[k]
-            bary_v = bary_v + rowt[22 + 2 * k] * uvw[k]
-        smooth_normal = v3.normalize3(smooth_normal)
+    smooth_normal = (zero, zero, zero)
+    geometry_offset = zero
+    bary_u = zero
+    bary_v = zero
+    for k in range(3):
+        vn = (rowt[12 + 3 * k], rowt[13 + 3 * k], rowt[14 + 3 * k])
+        wn = v3.matvec3(rot, vn)
+        smooth_normal = v3.add3(smooth_normal, v3.scale3(wn, uvw[k]))
+        # tan(acos(x)) = sqrt(1-x^2)/x — shadow-acne offset (glsl:516-518)
+        cos_a = jnp.abs(jnp.clip(v3.dot3(geometry_normal, wn), -1.0, 1.0))
+        tan_a = jnp.clip(jnp.sqrt(1.0 - cos_a * cos_a) / cos_a, 0.0, 1.0)
+        diff = v3.norm3(v3.sub3(ray_origin, wv[k]))
+        geometry_offset = geometry_offset + diff * tan_a * uvw[k]
+        bary_u = bary_u + rowt[21 + 2 * k] * uvw[k]
+        bary_v = bary_v + rowt[22 + 2 * k] * uvw[k]
+    smooth_normal = v3.normalize3(smooth_normal)
 
     surface = BounceSurface(
         m=m, smooth_normal=smooth_normal, geometry_offset=geometry_offset,
@@ -442,17 +376,12 @@ def bounce_pre(carry: BounceCarry, i: int, mat, config, fetch_rows_fn=None):
     return carry._replace(alive=alive, ray_origin=ray_origin), surface
 
 
-def bounce_tex(buffers: SceneBuffers, surface: BounceSurface,
-               tex_fetch_fn=None):
+def bounce_tex(buffers: SceneBuffers, surface: BounceSurface):
     """Bounce stage 2: the three atlas fetches (glsl:502-510). Returns
     (albedo3, rough, metal, emis, tpo3)."""
-    if "texfetch" in DEBUG_DISABLE:
-        return (surface.inline_albedo, surface.inline_rme[0],
-                surface.inline_rme[1], surface.inline_rme[2],
-                surface.inline_tpo)
-    if tex_fetch_fn is None and buffers.albedo_tab is not None:
+    if buffers.albedo_tab is not None:
         # Compact-table fetch: value-identical to the padded-atlas gather
-        # but ~15x cheaper at 1080p (see AtlasTable)
+        # over a much smaller table (see AtlasTable)
         albedo = fetch_tex_val_table(
             buffers.albedo_tab, surface.bary_u, surface.bary_v,
             surface.tex_nums[0], surface.inline_albedo)
@@ -463,14 +392,13 @@ def bounce_tex(buffers: SceneBuffers, surface: BounceSurface,
             buffers.tpo_tab, surface.bary_u, surface.bary_v,
             surface.tex_nums[2], surface.inline_tpo)
         return (albedo, rough, metal, emis, tpo)
-    tex_fetch_fn = fetch_tex_val_soa if tex_fetch_fn is None else tex_fetch_fn
-    albedo = tex_fetch_fn(
+    albedo = fetch_tex_val_soa(
         buffers.albedo_atlas, surface.bary_u, surface.bary_v,
         surface.tex_nums[0], surface.inline_albedo, buffers.texture_width)
-    rough, metal, emis = tex_fetch_fn(
+    rough, metal, emis = fetch_tex_val_soa(
         buffers.pbr_atlas, surface.bary_u, surface.bary_v,
         surface.tex_nums[1], surface.inline_rme, buffers.texture_width)
-    tpo = tex_fetch_fn(
+    tpo = fetch_tex_val_soa(
         buffers.tpo_atlas, surface.bary_u, surface.bary_v,
         surface.tex_nums[2], surface.inline_tpo, buffers.texture_width)
     return (albedo, rough, metal, emis, tpo)
@@ -478,8 +406,7 @@ def bounce_tex(buffers: SceneBuffers, surface: BounceSurface,
 
 class ShadeRequest(NamedTuple):
     """bounce_shade -> bounce_apply crossing: the NEE shadow-ray request
-    (pick) plus the shading-frame values the post-shadow stage consumes.
-    `pick` is None when the reservoir is ablated (DEBUG_DISABLE)."""
+    (pick) plus the shading-frame values the post-shadow stage consumes."""
     m: jnp.ndarray
     ray_dir: tuple              # recomputed incoming unit direction
     smooth_normal: tuple        # sign-flipped shading normal
@@ -488,27 +415,17 @@ class ShadeRequest(NamedTuple):
     roughness_brdf: jnp.ndarray
     is_solid: jnp.ndarray
     write_id_w: jnp.ndarray
-    pick: ReservoirPick | None
+    pick: ReservoirPick
 
 
-def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i,
+def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i: int,
                  buffers: SceneBuffers, camera_pos, ndc2, cos_sample_n,
-                 config, random_seed, pack_id_fn=None, bounce_hook=None,
-                 force_unroll_lights: bool = False, i_scale=None):
+                 config, random_seed):
     """Bounce stage 3a (glsl:529-576 + reservoir selection 400-447):
     shading frame, Fresnel-chance decision, first-surface bookkeeping,
     reservoir light selection — everything up to (and excluding) the NEE
-    shadow ray. Returns (carry, ShadeRequest).
-
-    `i` may be a static Python int (wavefront path — bounce-index
-    branches resolve at trace time) or a traced f32 scalar (the split
-    kernel pipeline compiles ONE Mosaic program for all bounces and
-    passes the bounce index through scalar prefetch); the traced path
-    computes the i==0 / i==1 branches unconditionally and masks, with
-    bit-identical results (2**-i is exact in f32 for small ints)."""
-    pack_id_fn = (combine_normal_rme_soa if pack_id_fn is None
-                  else pack_id_fn)
-    static_i = isinstance(i, int)
+    shadow ray. `i` is the static bounce index. Returns
+    (carry, ShadeRequest)."""
     albedo, rough, metal, emis, tpo = tex
     m = surface.m
     smooth_normal = surface.smooth_normal
@@ -517,9 +434,6 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i,
     zero = jnp.zeros(shp, dtype=jnp.float32)
 
     ray_origin = carry.ray_origin
-    tri = carry.tri
-    alive = carry.alive
-    hs, hu, hv = carry.hs, carry.hu, carry.hv
     last_hit_point = carry.last_hit_point
     dont_filter = carry.dont_filter
     render_id = carry.render_id
@@ -531,7 +445,7 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i,
     smooth_normal = v3.scale3(smooth_normal, -sign_dir)
 
     rv = noise4(ndc2[0], ndc2[1], jnp.float32(i) + cos_sample_n, random_seed,
-                mode=getattr(config, "rng", "hash"))
+                mode=config.rng)
     random_sphere = v3.normalize3(v3.add3(
         smooth_normal, v3.normalize3((rv[0], rv[1], rv[2]))))
     brdf = _mix(1.0, jnp.abs(v3.dot3(smooth_normal, ray_dir)), metal)
@@ -552,66 +466,47 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i,
 
     # First-surface bookkeeping vs importancy accumulation (glsl:553-573)
     df = dont_filter & m
-    if "idchannels" in DEBUG_DISABLE:
-        df = df & (i == 0)
     original_tpo_x = jnp.where(df, tpo[0], carry.original_tpo_x)
     original_color = v3.where3(df, v3.mul3(carry.original_color, albedo),
                                carry.original_color)
     original_rme_x = jnp.where(df, carry.original_rme_x + rough,
                                carry.original_rme_x)
-    if bounce_hook is not None:
-        bounce_hook(i, df, smooth_normal, rough, metal, emis)
-    idu = pack_id_fn(smooth_normal, rough, metal, emis)
-    scale_i = 2.0 ** -i if static_i else i_scale
+    idu = combine_normal_rme_soa(smooth_normal, rough, metal, emis)
+    scale_i = 2.0 ** -i
     render_id = (
         render_id[0] + jnp.where(df, scale_i * idu[0], 0.0),
         render_id[1] + jnp.where(df, scale_i * idu[1], 0.0),
         render_id[2] + jnp.where(df, scale_i * idu[2], 0.0),
         render_id[3],
     )
-    if static_i:
-        if i == 0:
-            original_id_acc = tuple(
-                original_id_acc[c] + jnp.where(df, scale_i * idu[c], 0.0)
-                for c in range(3)) + (original_id_acc[3],)
-    else:
+    if i == 0:
         original_id_acc = tuple(
-            original_id_acc[c] + jnp.where(df & (i == 0.0),
-                                           scale_i * idu[c], 0.0)
+            original_id_acc[c] + jnp.where(df, scale_i * idu[c], 0.0)
             for c in range(3)) + (original_id_acc[3],)
     new_dont_filter = ((rough < 0.01) & is_solid) | ~is_solid
     is_glass = is_solid & (tpo[0] > 0.01)
     glass = jnp.where(df & is_glass, carry.glass + 1.0, carry.glass)
-    # NB: not jnp.where(is_glass, False, ...) — the scalar False literal
-    # lowers to an i8->i1 trunci that Mosaic rejects inside Pallas kernels.
     new_dont_filter = new_dont_filter & ~is_glass
     importancy = v3.where3(~dont_filter & m,
                            v3.mul3(carry.importancy, albedo),
                            carry.importancy)
-    # Bool-valued select_n also lowers through i8<->i1 casts Mosaic
-    # rejects — express every bool blend as pure logic instead.
     dont_filter = (df & new_dont_filter) | (~df & dont_filter)
 
     first_ray_length = carry.first_ray_length
-    if not static_i or i == 1:
+    if i == 1:
         ratio = (v3.norm3(v3.sub3(ray_origin, last_hit_point))
                  / jnp.maximum(v3.norm3(v3.sub3(
                      last_hit_point,
                      tuple(jnp.broadcast_to(camera_pos[c], shp)
                            for c in range(3)))), 1e-30))
-        keep = m if static_i else (m & (i == 1.0))
         first_ray_length = jnp.where(
-            keep, jnp.minimum(ratio, first_ray_length), first_ray_length)
+            m, jnp.minimum(ratio, first_ray_length), first_ray_length)
 
-    if "reservoir" in DEBUG_DISABLE:
-        pick = None
-    else:
-        pick = reservoir_select(
-            buffers, albedo, rough, metal, emis, ray_origin, ray_dir,
-            rv, v3.scale3(rough_normal, -sign_dir),
-            v3.scale3(smooth_normal, -sign_dir), geometry_offset,
-            random_seed, force_unroll=force_unroll_lights,
-            rng_mode=getattr(config, "rng", "hash"))
+    pick = reservoir_select(
+        buffers, albedo, rough, metal, emis, ray_origin, ray_dir,
+        rv, v3.scale3(rough_normal, -sign_dir),
+        v3.scale3(smooth_normal, -sign_dir), geometry_offset,
+        random_seed, rng_mode=config.rng)
     write_id_w = (dont_filter | (i == 0)) & m
 
     carry = carry._replace(
@@ -627,18 +522,13 @@ def bounce_shade(carry: BounceCarry, surface: BounceSurface, tex, i,
         write_id_w=write_id_w, pick=pick)
 
 
-def bounce_apply(carry: BounceCarry, tex, req: ShadeRequest, shadowed,
-                 i: int, config) -> BounceCarry:
+def bounce_apply(carry: BounceCarry, tex, req: ShadeRequest,
+                 shadowed) -> BounceCarry:
     """Bounce stage 3b (glsl:448-461 + 577-589): apply the NEE shadow
     result, accumulate radiance, compute the next ray direction."""
-    albedo, rough, metal, emis, tpo = tex
+    emis, tpo = tex[3], tex[4]
     m = req.m
-    shp = carry.hs.shape
-    zero = jnp.zeros(shp, dtype=jnp.float32)
-    if req.pick is None:
-        local_color, id_w = (emis, emis, emis), zero
-    else:
-        local_color, id_w = reservoir_finish(req.pick, emis, shadowed)
+    local_color, id_w = reservoir_finish(req.pick, emis, shadowed)
     render_id = carry.render_id[0:3] + (
         jnp.where(req.write_id_w, id_w, carry.render_id[3]),)
 
@@ -655,13 +545,9 @@ def bounce_apply(carry: BounceCarry, tex, req: ShadeRequest, shadowed,
 def next_ray_dir(req: ShadeRequest, tpo):
     """The next bounce direction (glsl:582-589): reflect, or
     Fresnel-chance refract, roughness-mixed. Unmasked — callers blend
-    with the live mask. Shared by bounce_apply and the merged
-    shadow+bounce pair cast (which needs the next ray *before*
-    bounce_apply runs)."""
+    with the live mask."""
     ray_dir = req.ray_dir
     smooth_normal = req.smooth_normal
-    if "nextdir" in DEBUG_DISABLE:
-        return v3.neg3(ray_dir)
     zero = jnp.zeros(ray_dir[0].shape, dtype=jnp.float32)
     n_dot_i = v3.dot3(smooth_normal, ray_dir)
     reflected = v3.sub3(ray_dir, v3.scale3(smooth_normal, 2.0 * n_dot_i))
@@ -677,187 +563,57 @@ def next_ray_dir(req: ShadeRequest, tpo):
                                  req.roughness_brdf))
 
 
-def bounce_commit(carry: BounceCarry, m, i: int, config, traverse_soa,
-                  next_traverse: bool | None = None,
-                  precomputed=None, hint=None) -> BounceCarry:
-    """Bounce stage 3c (glsl:591-597): the next closest hit.
-    `precomputed`: (ns, nu, nv, ntri) from a merged shadow+bounce cast
-    (pair_soa in bounce_post) — skips the traversal here.
-    `hint`: wavefront-sort locality hint override (frame-coherent history
-    prediction); defaults to the surface triangle the ray leaves."""
-    if next_traverse is None:
-        next_traverse = i + 1 < config.max_reflections
-    if not next_traverse:
-        return carry
+def bounce_commit(carry: BounceCarry, m, traverse_soa) -> BounceCarry:
+    """Bounce stage 3c (glsl:591-597): the next closest hit."""
     shp = carry.hs.shape
     zero = jnp.zeros(shp, dtype=jnp.float32)
     one = jnp.ones(shp, dtype=jnp.float32)
-    zdir = (zero, zero, one)
-    ray_origin = carry.ray_origin
-    tri = carry.tri
-    cast_hint = tri if hint is None else hint
-    if precomputed is not None:
-        ns, nu, nv, ntri = precomputed
-    else:
-        if DEBUG_CAPTURE is not None:
-            DEBUG_CAPTURE.setdefault("bounces", []).append(
-                (v3.where3(m, ray_origin, (zero, zero, zero)),
-                 v3.where3(m, carry.ray_dir, zdir), m, cast_hint))
-        ns, nu, nv, ntri = traverse_soa(
-            v3.where3(m, ray_origin, (zero, zero, zero)),
-            v3.where3(m, carry.ray_dir, zdir), alive=m, hint=cast_hint)
+    ns, nu, nv, ntri = traverse_soa(
+        v3.where3(m, carry.ray_origin, (zero, zero, zero)),
+        v3.where3(m, carry.ray_dir, (zero, zero, one)))
     hs = jnp.where(m, ns, carry.hs)
     hu = jnp.where(m, nu, carry.hu)
     hv = jnp.where(m, nv, carry.hv)
     new_tri = jnp.where(m, ntri, -1)
     alive = carry.alive & (new_tri != -1)
-    tri = jnp.maximum(jnp.where(m, new_tri, tri), 0)
-    last_hit_point = v3.where3(m, ray_origin, carry.last_hit_point)
+    tri = jnp.maximum(jnp.where(m, new_tri, carry.tri), 0)
+    last_hit_point = v3.where3(m, carry.ray_origin, carry.last_hit_point)
     return carry._replace(alive=alive, tri=tri, hs=hs, hu=hu, hv=hv,
                           last_hit_point=last_hit_point)
 
 
-def bounce_post(carry: BounceCarry, surface: BounceSurface, tex, i,
+def bounce_post(carry: BounceCarry, surface: BounceSurface, tex, i: int,
                 buffers: SceneBuffers, camera_pos, ndc2, cos_sample_n,
-                config, random_seed, traverse_soa, shadow_soa,
-                pack_id_fn=None, bounce_hook=None,
-                force_unroll_lights: bool = False,
-                next_traverse: bool | None = None,
-                pair_soa=None, bounce_hint=None, i_scale=None) -> BounceCarry:
-    """Bounce stage 3 (glsl:529-599) — composition of bounce_shade ->
-    NEE shadow ray -> bounce_apply -> bounce_commit, split so a kernel
-    pipeline can place the traversals between Pallas programs.
-
-    When `pair_soa` is provided (sparse scheme) and both casts are
-    needed, the shadow any-hit and the next closest hit run as ONE
-    merged cast sharing the wavefront sort machinery — both rays leave
-    the same hit point, and bounce_shade has already produced the next
-    ray direction by the time the shadow ray is known."""
+                config, random_seed, traverse_soa, shadow_soa) -> BounceCarry:
+    """Bounce stage 3 (glsl:529-599): bounce_shade -> NEE shadow ray ->
+    bounce_apply -> next closest hit (skipped after the last bounce)."""
     carry, req = bounce_shade(carry, surface, tex, i, buffers, camera_pos,
-                              ndc2, cos_sample_n, config, random_seed,
-                              pack_id_fn=pack_id_fn, bounce_hook=bounce_hook,
-                              force_unroll_lights=force_unroll_lights,
-                              i_scale=i_scale)
-    assert next_traverse is not None or isinstance(i, int), \
-        "traced bounce index requires an explicit next_traverse"
-    want_next = (next_traverse if next_traverse is not None
-                 else i + 1 < config.max_reflections)
-    precomputed = None
-    if req.pick is None or "shadow" in DEBUG_DISABLE:
-        shadowed = jnp.zeros(carry.hs.shape, dtype=bool)
-    elif (pair_soa is not None and want_next and DEBUG_CAPTURE is None
-          and bounce_hint is None):
-        shp = carry.hs.shape
-        zero = jnp.zeros(shp, dtype=jnp.float32)
-        one = jnp.ones(shp, dtype=jnp.float32)
-        m = req.m
-        # the next closest hit traces the direction bounce_apply will
-        # install (reflect/refract of req) — NOT carry.ray_dir, which is
-        # still the incoming ray at this point
-        shadowed, precomputed = pair_soa(
-            req.pick.offset_target, req.pick.light_dir, req.pick.max_len,
-            v3.where3(m, carry.ray_origin, (zero, zero, zero)),
-            v3.where3(m, next_ray_dir(req, tex[4]), (zero, zero, one)),
-            shadow_alive=m, bounce_alive=m, hint=carry.tri)
-    else:
-        # shadow rays leave the same surface tile as the ray being
-        # shaded — give the wavefront sort the same locality hint as
-        # the bounce traversal in bounce_commit
-        shadowed = shadow_soa(req.pick.offset_target, req.pick.light_dir,
-                              req.pick.max_len, alive=req.m, hint=carry.tri)
-    carry = bounce_apply(carry, tex, req, shadowed, i, config)
-    return bounce_commit(carry, req.m, i, config, traverse_soa,
-                         next_traverse=next_traverse,
-                         precomputed=precomputed, hint=bounce_hint)
+                              ndc2, cos_sample_n, config, random_seed)
+    shadowed = shadow_soa(req.pick.offset_target, req.pick.light_dir,
+                          req.pick.max_len)
+    carry = bounce_apply(carry, tex, req, shadowed)
+    if i + 1 < config.max_reflections:
+        carry = bounce_commit(carry, req.m, traverse_soa)
+    return carry
 
 
 def light_trace(buffers: SceneBuffers, mat, primary_parts, camera_pos,
                 direction3, ndc2, cos_sample_n, config, random_seed,
-                traverse_soa, shadow_soa, aux, fetch_rows_fn=None,
-                pack_id_fn=None, bounce_hook=None,
-                force_unroll_lights: bool = False, tex_fetch_fn=None,
-                bounce_post_impl=None, bounce_step_impl=None,
-                pair_soa=None, bounce_hints=None, hit_record=None):
+                traverse_soa, shadow_soa, aux, hit_record=None):
     """The bounce loop (glsl:464-599), unrolled with kill masks, SoA over
-    [N] component arrays (ops.vec3 — full-lane layout; AoS [N,3] runs at
-    3/128 lane utilization and turns the 3x3 einsums into bf16 convs).
-    Composed of the three stage functions above (pre -> tex -> post) so a
-    split pipeline can put kernel boundaries between them.
+    [N] component arrays (ops.vec3). Composed of the stage functions
+    above (pre -> tex -> post).
 
     `aux` carries the shader's globals across samples (glsl:84-89).
-
-    `bounce_hints`: optional per-bounce [N] int32 predictions of where
-    each ray will land (last frame's hit at the same bounce index, -1
-    unknown) — the frame-coherent wavefront-sort hint
-    (FLEXLIGHT_SPARSE_SORT=history). `hit_record`: optional list; when
-    given, each bounce appends its landed triangle (-1 for dead rays)
-    for the next frame's predictions.
-
-    The injected hooks exist for the fused Pallas path (ops.fused), which
-    traces these SAME stages inside a TPU kernel: `fetch_rows_fn`
-    replaces fetch_rows_t (whose gather fallback cannot lower in Mosaic),
-    `tex_fetch_fn` replaces the atlas gather, `pack_id_fn` replaces
-    combine_normal_rme_soa (arctan2 has no Mosaic lowering), and
-    `bounce_hook(i, df, smooth_normal, rough, metal, emis)` records the
-    packing inputs per bounce so the id channels are reconstructed
-    outside the kernel with identical arithmetic. Defaults preserve the
-    plain XLA behavior exactly.
-    """
-    post = bounce_post if bounce_post_impl is None else bounce_post_impl
+    `hit_record`: optional list; when given, each bounce appends its
+    landed triangle (-1 for dead rays)."""
     carry = bounce_carry_init(primary_parts, camera_pos, direction3, aux)
-    # Dead-tail skip: the reference's per-pixel loop exits on the
-    # importance cutoff (glsl:475); on diffuse scenes most frames have NO
-    # ray surviving past bounce ~3, yet the unrolled graph pays the full
-    # per-bounce cost. Wrapping late bounces in lax.cond(any alive)
-    # executes them only when some ray is live — exact (a bounce over an
-    # all-dead wavefront is a no-op by construction: every update is
-    # masked on carry.alive). Disabled for the injected-hook paths (their
-    # Python-side capture lists cannot cross a cond) and by env.
-    # FLEXLIGHT_TAIL_SKIP = first bounce index eligible (0 disables).
-    # Caveat: on TPU the cond branch is a separate fusion context, and
-    # XLA's sin codegen there can differ in the last ulp — with the
-    # sin-hash RNG (config.rng="hash") that flips late-bounce random
-    # numbers entirely (same chaos class as the fused kernels; counter
-    # RNG and all discrete channels are unaffected, CPU is exact to
-    # ~2e-7). The A/B therefore compares images statistically on chip.
-    # Default OFF (chip 2026-08-20, batch E): wrapping bounces 2+ in
-    # lax.cond made the theater-1080p compile exceed 15 minutes (the cond
-    # branch re-lowers every Mosaic cast kernel per bounce) vs ~2.5 min
-    # without — a compile-cost regression no possible runtime win repays
-    # at interactive sizes. Opt-in for long offline renders of scenes
-    # whose wavefronts genuinely die out (FLEXLIGHT_TAIL_SKIP=<first
-    # eligible bounce>).
-    tail_skip_min = int(os.environ.get("FLEXLIGHT_TAIL_SKIP", "0"))
-    can_skip = (bounce_step_impl is None and bounce_hook is None
-                and DEBUG_CAPTURE is None and tail_skip_min >= 1)
     for i in range(config.max_reflections):
-        if bounce_step_impl is not None:
-            # whole bounce (interp + tex + shade + shadow + apply +
-            # next hit) handled by the injected kernel pipeline
-            carry = bounce_step_impl(carry, i, mat, ndc2, cos_sample_n,
-                                     random_seed, traverse_soa, shadow_soa)
-            continue
-        pkw = ({"pair_soa": pair_soa}
-               if bounce_post_impl is None and pair_soa is not None else {})
-        if bounce_hints is not None and bounce_post_impl is None:
-            pkw["bounce_hint"] = bounce_hints[i]
-
-        def bounce_i(carry, i=i, pkw=pkw):
-            carry, surface = bounce_pre(carry, i, mat, config, fetch_rows_fn)
-            tex = bounce_tex(buffers, surface, tex_fetch_fn)
-            return post(
-                carry, surface, tex, i, buffers, camera_pos, ndc2,
-                cos_sample_n, config, random_seed, traverse_soa, shadow_soa,
-                pack_id_fn=pack_id_fn, bounce_hook=bounce_hook,
-                force_unroll_lights=force_unroll_lights, **pkw)
-
-        if can_skip and i >= tail_skip_min:
-            import jax as _jx
-
-            carry = _jx.lax.cond(jnp.any(carry.alive), bounce_i,
-                                 lambda c: c, carry)
-        else:
-            carry = bounce_i(carry)
+        carry, surface = bounce_pre(carry, i, mat, config)
+        tex = bounce_tex(buffers, surface)
+        carry = bounce_post(carry, surface, tex, i, buffers, camera_pos,
+                            ndc2, cos_sample_n, config, random_seed,
+                            traverse_soa, shadow_soa)
         if hit_record is not None:
             hit_record.append(jnp.where(carry.alive, carry.tri, -1))
 
@@ -881,11 +637,11 @@ def _pick_block(rows: int, width: int):
 def block_tile(x, rows: int, width: int, bh: int, bw: int):
     """Reorder flat row-major pixels into bh x bw block order.
 
-    Ray tiles (1024 consecutive rays) are the unit of cluster culling in
-    the Pallas kernel; in row-major order a tile is a half-row sliver of
-    the image whose frustum spans the whole scene. As a square-ish pixel
-    block the same 1024 rays form a tight frustum, so the per-tile cluster
-    unions (and the flag matrix) collapse. Pure reshape/transpose — a
+    Ray groups (consecutive rays) are the unit of cluster culling in
+    ops.traverse_clustered; in row-major order a group is a half-row
+    sliver of the image whose frustum spans the whole scene. As a
+    square-ish pixel block the same 1024 rays form a tight frustum, so
+    the per-group cluster unions collapse. Pure reshape/transpose — a
     static relayout, no gathers; shading is pointwise so the entire bounce
     pipeline runs in block order and only the MRT assembly un-tiles."""
     lead = x.shape[1:]
@@ -903,10 +659,11 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
                view_matrix, config, random_seed, scheme: str = "scan",
                tile: int = 1024, row0=0, rows: int | None = None,
                sample_offset=0.0, local_samples: int | None = None,
-               with_raw_aux: bool = False, trace_hints=None,
-               with_trace_hints: bool = False):
+               with_raw_aux: bool = False, with_trace_hints: bool = False):
     """Full primary+bounce render to the 6-channel MRT contract
     (glsl:601-646). Returns flat [N=rows*W] per-pixel outputs.
+
+    `scheme` names the traversal (ops.schemes.SCHEMES).
 
     `row0`/`rows` render an image strip (tile sharding); `sample_offset`/
     `local_samples` render a slice of the per-pixel sample loop (sample
@@ -918,319 +675,72 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     rme sums across samples while frl is a running min, so sample shards
     must combine the raw channels before folding (parallel.tile_sharding).
 
-    `trace_hints` / `with_trace_hints`: frame-coherent wavefront-sort
-    state (FLEXLIGHT_SPARSE_SORT=history). trace_hints is a tuple of
-    per-bounce [H*W] int32 row-major arrays — each pixel's LAST-frame hit
-    triangle at that bounce (-1 unknown); the bounce casts sort by the
-    predicted tile instead of nearest2's slab-entry prepass. With
-    with_trace_hints=True the return gains this frame's tuple (feed it
-    to the next frame). Sort keys never change traversal results."""
-    if scheme == "fused":
-        from .fused import render_mrt_fused
-
-        return render_mrt_fused(
-            buffers, width, height, camera_pos, view_matrix, config,
-            random_seed, row0=row0, rows=rows, sample_offset=sample_offset,
-            local_samples=local_samples, with_raw_aux=with_raw_aux)
-    if scheme == "fused_split":
-        from .fused import render_mrt_fused_split
-
-        return render_mrt_fused_split(
-            buffers, width, height, camera_pos, view_matrix, config,
-            random_seed, row0=row0, rows=rows, sample_offset=sample_offset,
-            local_samples=local_samples, with_raw_aux=with_raw_aux)
+    `with_trace_hints` additionally returns a tuple of per-bounce [H*W]
+    int32 row-major arrays: each pixel's landed triangle at that bounce
+    of the last sample (-1 when the path died) — the per-bounce path
+    record the parity tests compare against the oracle's."""
+    check_scheme(scheme)
     world_geom = world_geometry(buffers)
 
-    pair_fn = None   # sparse scheme overrides: merged shadow+bounce cast
-    traverse_fn_soa = None   # kernel scheme: SoA-channel fast path
-    shadow_fn_soa = None
     if scheme == "mxu":
         from .traverse_mxu import build_tri_matrix, shadow_mxu, traverse_mxu
 
         w = build_tri_matrix(world_geom, buffers.id_buffer)
 
-        def traverse_fn(o, d, alive=None, edge=BIAS):
+        def traverse_fn(o, d, edge=BIAS):
             return traverse_mxu(w, buffers.id_buffer, o, d, edge=edge)
 
-        def shadow_fn(o, d, l, alive=None):
+        def shadow_fn(o, d, l):
             return shadow_mxu(w, o, d, l)
-    elif scheme == "sparse":
-        import jax
-
-        from .intersect_sparse import (build_w4_tiled, pair_sparse,
-                                       shadow_sparse, traverse_sparse)
-
-        # Worklist granularity knobs (first chip-swept in round 4: the
-        # per-chunk-step VPU epilogue dominates incoherent casts).
-        # chunk=2 default: dragon 1080p direct 837.5 -> 806.9 ms (batch
-        # r4c) — finer early-exit granularity beats loop overhead; ck=1
-        # gives it back (811.8), ck=8 / tri_tile 256 VMEM-OOM at chunk 4.
-        s_tt = int(os.environ.get("FLEXLIGHT_SPARSE_TRI_TILE", "0")) or 128
-        s_ck = int(os.environ.get("FLEXLIGHT_SPARSE_CHUNK", "0")) or 2
-        w4t, amin, amax, w4f = build_w4_tiled(world_geom, buffers.id_buffer,
-                                              tri_tile=s_tt)
-        interp = jax.default_backend() == "cpu"
-        sort = w4t.shape[0] >= 8
-        # Candidate-aware bounce/shadow wavefront sort (see
-        # intersect_sparse.nearest2_key; chip A/B 2026-08-18: dragon
-        # 1080p direct 1046.7 -> 999.7 ms, so nearest2 is the default)
-        # + subtiling (several small ray tiles per Mosaic program:
-        # small-tile matmul savings without the program-launch
-        # overhead). Trace-time like the other perf knobs here.
-        smode = os.environ.get("FLEXLIGHT_SPARSE_SORT", "nearest2")
-        # Primary casts are block-tiled coherent already; the unhinted
-        # (octant, morton) sort is nearly order-preserving there and its
-        # carry-sort machinery cost 15.4 ms/frame at dragon 1080p
-        # (bench_sparse_anatomy r5: sorted 105.9 vs unsorted 90.5).
-        # Bounce/shadow (hinted) casts keep the sort: 176 vs 578 ms on a
-        # synthetic fully-incoherent wavefront.
-        sort_primary = os.environ.get(
-            "FLEXLIGHT_SPARSE_SORT_PRIMARY", "0") == "1"
-
-        # subtile 8 default (round 4, with chunk=2 + subtiled primaries:
-        # dragon 1080p direct 806.9 -> 799.4 -> 765.5 ms across batches
-        # r4f/r4i; r3's subtile-4 default measured 839.2).
-        sub = int(os.environ.get("FLEXLIGHT_SPARSE_SUBTILE", "8"))
-
-        def traverse_fn(o, d, alive=None, edge=BIAS, hint=None):
-            # NB: returns DRAWABLE indices; the material/location tables
-            # below are pre-gathered into drawable order for this scheme.
-            rt = SPARSE_BOUNCE_RAY_TILE if hint is not None else 1024
-            g = sub
-            do_sort = sort and (hint is not None or sort_primary)
-            return traverse_sparse(w4t, w4f, amin, amax, o, d,
-                                   interpret=interp, sort_rays=do_sort,
-                                   alive=alive, edge=edge, sort_hint=hint,
-                                   ray_tile=rt, sort_mode=smode, subtile=g,
-                                   tri_tile=s_tt, chunk=s_ck)
-
-        def shadow_fn(o, d, l, alive=None, hint=None):
-            rt = SPARSE_BOUNCE_RAY_TILE if hint is not None else 1024
-            g = sub
-            do_sort = sort and (hint is not None or sort_primary)
-            return shadow_sparse(w4t, amin, amax, o, d, l,
-                                 interpret=interp, sort_rays=do_sort,
-                                 alive=alive, sort_hint=hint, ray_tile=rt,
-                                 sort_mode=smode, subtile=g,
-                                 tri_tile=s_tt, chunk=s_ck)
-
-        # SoA bounce casts: carry-sorted wavefront (payload rides one
-        # multi-operand lax.sort instead of argsort + lane-padded [N, C]
-        # row gathers) + channel-major kernel features. Same results as
-        # the row path. Default ON since the chip A/B (2026-08-19,
-        # dragon 1080p direct: 998.6 -> 856.1 ms); the >512-tile
-        # prevtile composite has no single-key form, so those scenes
-        # keep the row path unless sorted by nearest2.
-        if (os.environ.get("FLEXLIGHT_SPARSE_SOA", "1") != "0"
-                and (smode == "nearest2" or w4t.shape[0] <= 512)):
-            from .intersect_sparse import (shadow_sparse_soa,
-                                           traverse_sparse_soa)
-
-            def traverse_fn_soa(o3, d3, alive=None, edge=BIAS, hint=None):
-                rt = SPARSE_BOUNCE_RAY_TILE if hint is not None else 1024
-                g = sub
-                do_sort = sort and (hint is not None or sort_primary)
-                return traverse_sparse_soa(w4t, w4f, amin, amax, o3, d3,
-                                           interpret=interp,
-                                           sort_rays=do_sort, alive=alive,
-                                           edge=edge, sort_hint=hint,
-                                           ray_tile=rt, sort_mode=smode,
-                                           subtile=g, tri_tile=s_tt,
-                                           chunk=s_ck)
-
-            def shadow_fn_soa(o3, d3, l, alive=None, hint=None):
-                rt = SPARSE_BOUNCE_RAY_TILE if hint is not None else 1024
-                g = sub
-                do_sort = sort and (hint is not None or sort_primary)
-                return shadow_sparse_soa(w4t, amin, amax, o3, d3, l,
-                                         interpret=interp, sort_rays=do_sort,
-                                         alive=alive, sort_hint=hint,
-                                         ray_tile=rt, sort_mode=smode,
-                                         subtile=g, tri_tile=s_tt,
-                                         chunk=s_ck)
-
-        if os.environ.get("FLEXLIGHT_PAIR_CAST", "0") != "0":
-            # Off by default: chip A/B (dragon 1080p direct, 2026-08-19)
-            # measured 1048.4 ms paired vs 999.9 ms separate — sharing the
-            # bounce ray's permutation costs the shadow any-hit more
-            # coherence than the saved sort machinery (~15 ms/cast).
-            def pair_fn(so, sd, sml, bo, bd, shadow_alive=None,
-                        bounce_alive=None, hint=None):
-                # shadow + next-bounce casts of one bounce share one
-                # wavefront permutation (always hinted: bounce-loop only)
-                return pair_sparse(w4t, w4f, amin, amax, so, sd, sml,
-                                   bo, bd, interpret=interp,
-                                   sort_rays=sort,
-                                   shadow_alive=shadow_alive,
-                                   bounce_alive=bounce_alive,
-                                   sort_hint=hint,
-                                   ray_tile=SPARSE_BOUNCE_RAY_TILE,
-                                   sort_mode=smode, subtile=sub,
-                                   tri_tile=s_tt, chunk=s_ck)
-    elif scheme == "kernel":
-        import jax
-
-        from .intersect_kernel import (RAY_TILE, build_w4, pick_tri_tile,
-                                       shadow_kernel, shadow_kernel_soa,
-                                       traverse_kernel, traverse_kernel_soa)
-
-        tri_tile = int(os.environ.get("FLEXLIGHT_DENSE_TRI_TILE", "0")) \
-            or pick_tri_tile(buffers.id_buffer.shape[0])
-        w4, amin, amax, ids = build_w4(world_geom, buffers.id_buffer, tri_tile)
-        interp = jax.default_backend() == "cpu"  # Pallas TPU kernels: interpret on CPU
-        # Octant sorting only pays for itself when there are many triangle
-        # tiles to skip (argsort is not free on TPU)
-        sort = (ids.shape[0] // tri_tile) >= 8
-        # Small scenes are grid-step-overhead-bound (theater 20 tris:
-        # ~6 ms per 2M-ray pass across 2048 programs vs ~0.3 ms of actual
-        # MXU+HBM work); larger ray tiles cut the program count. Chip A/B
-        # 2026-08-19 (batch J): theater 1080p direct 205.4 -> 194.3 ms at
-        # ray_tile 8192 (with SoA casts), anyhit cast 6.0 -> 3.1 ms.
-        # Small ray counts keep 1024 (padding waste + interpret cost).
-        env_drt = int(os.environ.get("FLEXLIGHT_DENSE_RAY_TILE", "0"))
-
-        def _pick_drt(n_rays: int) -> int:
-            if env_drt:
-                return env_drt
-            if sort or n_rays < 32768:
-                return RAY_TILE
-            # the kernel's [ray_tile, 4*tri_tile] VMEM product caps the
-            # tile: 8192 x 64-tri fits, obj's 256-tri tile OOM'd at 8192
-            # (chip, batch P) -> scale inversely with tri_tile. Never go
-            # above 8192: the [K, ray_tile] feature tile and the per-row
-            # epilogue temps grow with ray_tile regardless of tri_tile
-            # (16384 x 32-tri OOM'd at 18.2M/16M scoped VMEM, chip
-            # 2026-08-19).
-            return max(RAY_TILE, min(8192, 8192 * 64 // tri_tile))
-
-        # Ray tiles grouped per Mosaic program: the per-program fixed
-        # cost (~23 us, ~60% of a small-scene cast) divides by the group.
-        # Caveat (chip 2026-08-20): the [K, subtile*ray_tile] feature
-        # block is double-buffered, so grouping DOES grow scoped VMEM —
-        # subtile 2 at ray_tile 8192 OOM'd (17.85M/16M). _intersect_ft
-        # clamps subtile*ray_tile <= 8192, so at the 8192 default tile
-        # this is a no-op; grouping engages with FLEXLIGHT_DENSE_RAY_TILE
-        # <= 2048 (same rays per program, smaller epilogue temps).
-        env_dsub = int(os.environ.get("FLEXLIGHT_DENSE_SUBTILE", "4"))
-
-        def _pick_dsub(n_rays: int) -> int:
-            # grouping only pays when there are many programs to merge
-            return env_dsub if n_rays >= 32768 and not sort else 1
-
-        def traverse_fn(o, d, alive=None, edge=BIAS):
-            return traverse_kernel(w4, amin, amax, ids, o, d, interpret=interp,
-                                   tri_tile=tri_tile, sort_rays=sort,
-                                   ray_tile=_pick_drt(o.shape[0]),
-                                   alive=alive, edge=edge,
-                                   subtile=_pick_dsub(o.shape[0]))
-
-        def shadow_fn(o, d, l, alive=None):
-            return shadow_kernel(w4, amin, amax, ids, o, d, l, interpret=interp,
-                                 tri_tile=tri_tile, sort_rays=sort,
-                                 ray_tile=_pick_drt(o.shape[0]), alive=alive,
-                                 subtile=_pick_dsub(o.shape[0]))
-
-        if not sort and os.environ.get("FLEXLIGHT_SOA_CAST", "1") != "0":
-            # SoA fast path for the bounce loop: ray channels go straight
-            # into channel-major [16, N] features — no lane-padded [N, 3]
-            # stack / [N, 16] features / suv transpose per cast. Bit-
-            # identical results (pure layout). The sorted path keeps the
-            # row layout its permutation gathers need.
-            def traverse_fn_soa(o3, d3, alive=None, edge=BIAS):
-                return traverse_kernel_soa(
-                    w4, amin, amax, ids, o3, d3, interpret=interp,
-                    tri_tile=tri_tile, ray_tile=_pick_drt(o3[0].shape[0]),
-                    alive=alive, edge=edge,
-                    subtile=_pick_dsub(o3[0].shape[0]))
-
-            def shadow_fn_soa(o3, d3, l, alive=None):
-                return shadow_kernel_soa(
-                    w4, amin, amax, ids, o3, d3, l, interpret=interp,
-                    tri_tile=tri_tile, ray_tile=_pick_drt(o3[0].shape[0]),
-                    alive=alive, subtile=_pick_dsub(o3[0].shape[0]))
     elif scheme == "clustered":
         from .traverse_clustered import build_clusters, shadow_clustered, traverse_clustered
 
         clusters = build_clusters(world_geom, buffers.id_buffer)
 
-        def traverse_fn(o, d, alive=None, edge=BIAS):
+        def traverse_fn(o, d, edge=BIAS):
             return traverse_clustered(clusters, o, d, edge=edge)
 
-        def shadow_fn(o, d, l, alive=None):
+        def shadow_fn(o, d, l):
             return shadow_clustered(clusters, o, d, l)
     elif scheme == "packet":
-        def traverse_fn(o, d, alive=None, edge=BIAS):
+        def traverse_fn(o, d, edge=BIAS):
             return trv.traverse_coherent(world_geom, o, d, tile=tile, edge=edge)
 
-        def shadow_fn(o, d, l, alive=None):
+        def shadow_fn(o, d, l):
             return trv.shadow_coherent(world_geom, o, d, l, tile=tile)
     else:
-        def traverse_fn(o, d, alive=None, edge=BIAS):
+        def traverse_fn(o, d, edge=BIAS):
             return trv.traverse_scan(world_geom, o, d, edge=edge)
 
-        def shadow_fn(o, d, l, alive=None):
+        def shadow_fn(o, d, l):
             return trv.shadow_scan(world_geom, o, d, l)
 
     origin, direction, ndc = camera_rays(width, height, camera_pos, view_matrix,
                                          row0=row0, rows=rows)
-    # Block-tiled ray order: big-scene cluster culling needs tight per-tile
+    # Block-tiled ray order: big-scene cluster culling needs tight per-group
     # frusta (see block_tile). Small scenes have nothing to cull.
     n_rows = height if rows is None else rows
     block = _pick_block(n_rows, width)
-    blocked = (scheme in ("kernel", "clustered", "sparse") and block is not None
+    blocked = (scheme == "clustered" and block is not None
                and buffers.id_buffer.shape[0] >= BLOCK_TILE_MIN_TRIS)
     if blocked:
         bh, bw = block
         origin = block_tile(origin, n_rows, width, bh, bw)
         direction = block_tile(direction, n_rows, width, bh, bw)
         ndc = block_tile(ndc, n_rows, width, bh, bw)
-        if trace_hints is not None:
-            trace_hints = tuple(block_tile(h, n_rows, width, bh, bw)
-                                for h in trace_hints)
     mat = build_material_table(buffers, world_geom)
-    loc_geometry = buffers.geometry
-    if scheme == "sparse":
-        # the sparse kernel reports drawable indices (id_buffer order);
-        # re-gather the per-triangle tables once per frame instead of
-        # mapping every traversal result back to geometry slots
-        mat = mat[buffers.id_buffer]
-        loc_geometry = buffers.geometry[buffers.id_buffer]
     n = origin.shape[0]
     # Primary rays replace the reference's watertight raster pass
     # (pathtracerWGL2.js vertex stage), so they use the relaxed edge
     # window; bounce rays (traverse_soa below) keep the fragment
-    # shader's exact +BIAS window (glsl:134-136). The SoA entry (when
-    # the scheme provides one) skips the row path's lane-padded [N, 16]
-    # feature stack and argsort+row-gather sort machinery (~25 ms at
-    # dragon 1080p) — results are bit-identical (pure layout).
-    if traverse_fn_soa is not None:
-        o_t, d_t = origin.T, direction.T
-        p_s, p_u, p_v, p_tri = traverse_fn_soa(
-            (o_t[0], o_t[1], o_t[2]), (d_t[0], d_t[1], d_t[2]), edge=-BIAS)
-        primary = trv.Hit(
-            suv=jnp.stack([p_s, p_u, p_v], axis=-1), triangle=p_tri)
-    else:
-        primary = traverse_fn(origin, direction, edge=-BIAS)
+    # shader's exact +BIAS window (glsl:134-136).
+    primary = traverse_fn(origin, direction, edge=-BIAS)
     covered = primary.triangle != -1
 
-    # Large material tables (> one-hot threshold) fetch via row gathers;
-    # consuming rows of the resulting [C, N] table costs a degenerate
-    # [1, N] -> [N] relayout per row (~8 ms per 2M rays, measured). For
-    # those scenes shading runs on [G, 1024] 2-D shapes where [C, G, 1024]
-    # row reads are free leading-dim slices (dragon 1080p: 1.50 -> 1.05 s).
-    # Small tables use the one-hot MXU fetch whose [C, N] output is
-    # consumed best flat — 2-D there costs boundary relayouts for nothing
-    # at the sizes it was tuned on — below ~1M rays. At 1080p-class ray
-    # counts the 2-D layout wins even on small tables: theater 1080p
-    # direct 191.2->153.0 (batch A3) and 188.6->154.4 ms (batch C1, two
-    # independent chip A/Bs) — the flat [C, N] one-hot output pays ~38 ms
-    # of boundary relayouts at 2M rays. Measured crossover data exists
-    # only at 2M (wins) and 0.92M (obj, flat ties/wins), so the
-    # n-threshold is conservative: 1.5M. FLEXLIGHT_FORCE_2D=1/0
-    # overrides either way (perf A/Bs).
-    force_2d = os.environ.get("FLEXLIGHT_FORCE_2D", "")
-    use2d = (mat.shape[0] > 256 or n >= 1_500_000 or force_2d == "1") \
-        and force_2d != "0"
+    # Large material tables (> the one-hot threshold) fetch via row
+    # gathers, and large ray counts shade on [G, 1024] 2-D shapes where
+    # the [C, G, 1024] rows of fetch_rows_t are leading-dim slices.
+    use2d = mat.shape[0] > 256 or n >= SHADE_2D_MIN_RAYS
     if use2d:
         pad2 = (-n) % 1024
         g2 = (n + pad2) // 1024
@@ -1241,7 +751,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         def to1d(x):
             return x.reshape(-1)[:n]
     else:
-        pad2, g2 = 0, n
+        g2 = n
         to2d = lambda x, fill=0.0: x
         to1d = lambda x: x
 
@@ -1259,49 +769,15 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
 
     rshape = (g2, 1024) if use2d else (n,)
 
-    accepts_hint = scheme == "sparse"
-
-    def traverse_soa(o3, d3, alive=None, hint=None):
-        al = None if alive is None else alive.reshape(-1)
-        kw = {"hint": hint.reshape(-1)} if (accepts_hint and hint is not None) else {}
-        if traverse_fn_soa is not None:
-            s, u, v, tri = traverse_fn_soa(
-                tuple(c.reshape(-1) for c in o3),
-                tuple(c.reshape(-1) for c in d3), alive=al, **kw)
-            return (s.reshape(rshape), u.reshape(rshape),
-                    v.reshape(rshape), tri.reshape(rshape))
-        hit = traverse_fn(_flat3(o3), _flat3(d3), alive=al, **kw)
+    def traverse_soa(o3, d3):
+        hit = traverse_fn(_flat3(o3), _flat3(d3))
         hsuv = hit.suv.T
         return (hsuv[0].reshape(rshape), hsuv[1].reshape(rshape),
                 hsuv[2].reshape(rshape), hit.triangle.reshape(rshape))
 
-    def shadow_soa(o3, d3, max_len, alive=None, hint=None):
-        al = None if alive is None else alive.reshape(-1)
-        kw = {"hint": hint.reshape(-1)} if (accepts_hint and hint is not None) else {}
-        if shadow_fn_soa is not None:
-            return shadow_fn_soa(
-                tuple(c.reshape(-1) for c in o3),
-                tuple(c.reshape(-1) for c in d3),
-                max_len.reshape(-1), alive=al, **kw).reshape(rshape)
-        return shadow_fn(_flat3(o3), _flat3(d3), max_len.reshape(-1),
-                         alive=al, **kw).reshape(rshape)
-
-    pair_soa = None
-    if pair_fn is not None:
-        def pair_soa(so3, sd3, max_len, bo3, bd3, shadow_alive=None,
-                     bounce_alive=None, hint=None):
-            sal = None if shadow_alive is None else shadow_alive.reshape(-1)
-            bal = None if bounce_alive is None else bounce_alive.reshape(-1)
-            h = None if hint is None else hint.reshape(-1)
-            hit, shadowed = pair_fn(_flat3(so3), _flat3(sd3),
-                                    max_len.reshape(-1), _flat3(bo3),
-                                    _flat3(bd3), shadow_alive=sal,
-                                    bounce_alive=bal, hint=h)
-            hsuv = hit.suv.T
-            return (shadowed.reshape(rshape),
-                    (hsuv[0].reshape(rshape), hsuv[1].reshape(rshape),
-                     hsuv[2].reshape(rshape),
-                     hit.triangle.reshape(rshape)))
+    def shadow_soa(o3, d3, max_len):
+        return shadow_fn(_flat3(o3), _flat3(d3),
+                         max_len.reshape(-1)).reshape(rshape)
 
     zero = jnp.zeros(rshape, dtype=jnp.float32)
     one = jnp.ones(rshape, dtype=jnp.float32)
@@ -1317,36 +793,6 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
     original_color = (one, one, one)
     original_tpo_x = zero
 
-    # FLEXLIGHT_SHADE_KERNEL=1: run the per-bounce shading arithmetic
-    # (bounce_shade incl. reservoir selection) as one Pallas program per
-    # ray tile; the shadow ray / next closest hit stay with this scheme's
-    # traversal closures. Big-scene (sparse) companion to scheme=
-    # "fused_split" — those scenes keep worklist traversal but their
-    # shading otherwise runs as hundreds of XLA ops over HBM.
-    bounce_post_impl = None
-    bounce_step_impl = None
-    shade_k = os.environ.get("FLEXLIGHT_SHADE_KERNEL", "")
-    if shade_k in ("1", "xla", "mosaic") and use2d and not DEBUG_DISABLE:
-        from .fused import (fused_step_eligible, make_fused_bounce_step,
-                            make_shade_bounce_post, shade_kernel_eligible)
-
-        # "xla" = trace the kernel function under plain XLA (exact-
-        # equivalence tests; whole image must be one tile); "mosaic"
-        # forces the real Pallas lowering (TPU-export tests on a CPU
-        # host, where interpret would otherwise default on)
-        kw = dict(pallas=shade_k != "xla",
-                  interpret=False if shade_k == "mosaic" else None)
-        if fused_step_eligible(buffers):
-            # trivial atlases (dragon): interp + tex + shade in ONE program
-            bounce_step_impl = make_fused_bounce_step(
-                buffers, camera_pos, config, **kw)
-        elif shade_kernel_eligible(buffers):
-            bounce_post_impl = make_shade_bounce_post(
-                buffers, camera_pos, config, **kw)
-
-    bounce_hints2 = None
-    if trace_hints is not None:
-        bounce_hints2 = [to2d(h, -1).astype(jnp.int32) for h in trace_hints]
     hit_record = [] if with_trace_hints else None
     n_local = config.samples_per_ray if local_samples is None else local_samples
     for s in range(n_local):
@@ -1355,9 +801,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         color, original_color, original_tpo_x, aux = light_trace(
             buffers, mat, primary_parts, camera_pos, direction3, ndc2,
             cos_sample_n, config, random_seed, traverse_soa, shadow_soa, aux,
-            bounce_post_impl=bounce_post_impl,
-            bounce_step_impl=bounce_step_impl, pair_soa=pair_soa,
-            bounce_hints=bounce_hints2, hit_record=rec)
+            hit_record=rec)
         total = v3.add3(total, color)
     final_color = v3.scale3(total, 1.0 / config.samples_per_ray)
 
@@ -1366,7 +810,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
 
     # Primary-hit local position for the location id channel (glsl:641-642)
     ptri = jnp.maximum(primary_parts[3], 0)
-    lrow = fetch_rows_t(loc_geometry, ptri)     # [12, G, 1024]
+    lrow = fetch_rows_t(buffers.geometry, ptri)     # [12, ...rshape]
     puvw = (1.0 - primary_parts[1] - primary_parts[2],
             primary_parts[1], primary_parts[2])
     rel_pos = (zero, zero, zero)
@@ -1404,9 +848,7 @@ def render_mrt(buffers: SceneBuffers, width: int, height: int, camera_pos,
         alpha=cov.astype(jnp.float32),
     )
     if blocked:
-        import jax as _jax
-
-        mrt = _jax.tree.map(
+        mrt = jax.tree.map(
             lambda x: block_untile(x, n_rows, width, bh, bw), mrt)
     extras = []
     if with_raw_aux:

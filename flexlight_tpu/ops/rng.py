@@ -14,9 +14,8 @@
 - "counter" (quality): a stateless counter-based integer hash — the
   float32 BITS of the same four inputs chained through murmur3
   finalizer rounds (full avalanche), one extra round per output
-  channel. Integer xor/mul/logical-shift only, so it traces inside
-  Pallas kernels (no lax.sin table, no captured constants) and lowers
-  to Mosaic. Same call contract and determinism (pure function of the
+  channel. Integer xor/mul/logical-shift only, so it gives the same
+  bits on every backend. Same call contract and determinism (pure function of the
   inputs); different sample sequence, so goldens/oracle tests pin the
   hash mode only.
 """
@@ -28,8 +27,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# murmur3 finalizer constants as python ints (two's-complement int32
-# literals trace inside Pallas kernels without captured-constant inputs)
+# murmur3 finalizer constants as python ints (two's-complement int32)
 _M1 = int(np.uint32(0x85EBCA6B).astype(np.int32))
 _M2 = int(np.uint32(0xC2B2AE35).astype(np.int32))
 _C4 = tuple(int(np.uint32(c).astype(np.int32))
@@ -55,10 +53,7 @@ def noise(n: jnp.ndarray, seed, random_seed) -> jnp.ndarray:
 def noise4(n0: jnp.ndarray, n1: jnp.ndarray, seed, random_seed,
            mode: str = "hash"):
     """SoA form of `noise`: two [N] coordinate components -> four [N]
-    channels in [-1, 1) (full-lane layout; see ops.vec3). Uses
-    python-float constants (not the module jnp arrays) so it can trace
-    inside Pallas kernels without captured-constant inputs (ops.fused).
-    `mode` picks the sin-hash (reference compat) or the counter hash
+    channels in [-1, 1) (SoA layout; see ops.vec3). `mode` picks the sin-hash (reference compat) or the counter hash
     (quality; see module docstring)."""
     if mode == "counter":
         return noise4_counter(n0, n1, seed, random_seed)
@@ -89,8 +84,7 @@ def noise4_counter(n0: jnp.ndarray, n1: jnp.ndarray, seed, random_seed):
     """Counter-hash noise: chain the float32 bits of the four inputs
     through fmix32 rounds; one keyed round per output channel. Output in
     [-1, 1) with 24 bits of mantissa-uniformity. Scalars are broadcast
-    to the lane shape before bitcasting — Mosaic's tpu.bitcast rejects
-    scalar f32 -> i32."""
+    to the input shape before bitcasting."""
     shp = jnp.shape(n0)
     h = _mix32(_bits(n0))
     h = _mix32(h ^ _bits(n1))

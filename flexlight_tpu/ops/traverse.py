@@ -3,14 +3,14 @@
 The flattened scene is a linear list of slots (triangles + AABB nodes with
 skip counts + a kind=0 end sentinel) — exactly the stackless encoding the
 reference's fragment shader walks one slot at a time per pixel
-(pathtracer_fragment.glsl:172-280). Two TPU-native schedules over the same
+(pathtracer_fragment.glsl:172-280). Two vectorized schedules over the same
 encoding:
 
 - `traverse_scan` / `shadow_scan`: chunk-vectorized linear scan. Every ray
   tests every triangle chunk; AABB nodes are ignored (testing a skipped
   subtree cannot change the closest hit, since any contained triangle hit
   implies the enclosing AABB hit). All work is [chunk, N]-wide elementwise
-  + argmin reductions — zero gathers, pure VPU. The right schedule for
+  + argmin reductions — zero gathers. The right schedule for
   small scenes (tens to hundreds of slots) and the golden oracle for the
   others.
 

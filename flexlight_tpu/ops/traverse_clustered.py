@@ -1,19 +1,19 @@
 """Clustered two-phase traversal for large scenes.
 
-The skip-pointer walk (ops.traverse) is the reference's schedule; on TPU
-its per-step scalar control starves the vector units once scenes grow.
-This schedule keeps the MXU hot at dragon scale:
+The skip-pointer walk (ops.traverse) is the reference's schedule; its
+per-step control flow serializes once scenes grow. This schedule turns
+large scenes into a few batched contractions per ray group:
 
 1. Triangles are chunked into K clusters of C consecutive triangles in
    flattened BVH DFS order (spatially coherent by construction — the
    flattener emits subtrees contiguously, scene.js:224-282). Cluster AABBs
    are reduced on device per frame from world-space vertices.
-2. Phase A: every ray slab-tests every cluster AABB ([N, K] VPU pass,
-   a few flops per pair); rays are grouped into blocks and each block
+2. Phase A: every ray slab-tests every cluster AABB ([N, K] elementwise
+   pass, a few flops per pair); rays are grouped into blocks and each block
    takes the union of its rays' cluster hits.
 3. Phase B: clusters are reordered by the group's hit union (hit first,
    nearest entry first) and scanned in chunks of `k_cand`; each chunk is
-   one batched [R, 16] x [16, k_cand*4C] MXU contraction (the
+   one batched [R, 16] x [16, k_cand*4C] contraction (the
    MT-as-matmul formulation of ops.traverse_mxu), and chunks whose
    clusters nobody hit are skipped via lax.cond inside the scan. Cost is
    therefore ceil(hit_clusters / k_cand) chunks per group — one chunk for
@@ -173,7 +173,7 @@ def _traverse_impl(clusters: Clusters, origin, direction, max_len,
     kpad = nchunks * k_cand - k
 
     def eval_clusters(w_sel, tri_sel, o, d, ml) -> _Best:
-        """Intersect rays with the selected clusters on the MXU."""
+        """Intersect rays with the selected clusters (one contraction)."""
         f = _ray_features(o, d)                                   # [R,16]
         wflat = w_sel.transpose(1, 0, 2).reshape(16, -1)          # [16, M*4C]
         prod = jnp.dot(f, wflat, precision=MATMUL_PRECISION)

@@ -1,6 +1,6 @@
-"""MXU ray-triangle traversal: Möller-Trumbore as one big matmul.
+"""All-pairs ray-triangle traversal: Möller-Trumbore as one big matmul.
 
-TPU-first reformulation of the reference's per-pixel triangle loop
+Reformulation of the reference's per-pixel triangle loop
 (pathtracer_fragment.glsl:172-227). The MT quantities are (bi)linear in
 the ray:
 
@@ -11,18 +11,17 @@ the ray:
 
 so with the 16-dim ray feature vector  f = [1, o, d, vec(d (x) o)]  all
 four values for every (ray, triangle) pair are one matrix product
-F[N,16] @ W[16, 4T] — exactly the large, batched fp32 contraction the MXU
-(128x128 systolic array) is built for. The accept conditions and the
-closest-hit argmin run as a short VPU epilogue over [N, T].
+F[N,16] @ W[16, 4T] — a large, batched fp32 contraction that XLA hands to
+cuBLAS on the GPU. The accept conditions and the closest-hit argmin run
+as an elementwise epilogue over [N, T] that XLA fuses.
 
 W is rebuilt per frame from world-space triangles — an O(T) elementwise
 pass fused by XLA, negligible next to traversal. Results match the scan
 traversal bit-for-bit in ids away from fp ties (tests assert id equality
 on real scenes).
 
-This is the fast path for scenes whose full triangle list fits a few MB
-([N,T] epilogue); large scenes use the packet/BVH path (ops.traverse /
-Pallas).
+This is the path for scenes up to ops.schemes.MXU_MAX_TRIS triangles;
+larger scenes take the cluster-culled cast (ops.traverse_clustered).
 """
 
 from __future__ import annotations
@@ -35,7 +34,17 @@ import jax.numpy as jnp
 from .intersect import BIAS, POW32
 from .traverse import Hit
 
-MATMUL_PRECISION = jax.lax.Precision.HIGHEST  # fp32-accurate MXU passes
+# True fp32 products: on the H100, DEFAULT precision would run the f32
+# contraction in TF32 (10-bit mantissa), which moves hit distances and
+# flips near-tie triangle choices against the scan oracle.
+MATMUL_PRECISION = jax.lax.Precision.HIGHEST
+
+# Working-set budget of one ray block: the [block, 4T] f32 product plus
+# about six [block, T] epilogue temporaries (det/u/v/s, mask, masked s),
+# i.e. ~40*T bytes per ray. Confirmed against compiled.memory_analysis()
+# on the H100 (see PERF.md).
+BLOCK_BYTES = 1 << 31
+MAX_BLOCK = 1 << 18
 
 
 def _skew(v):
@@ -51,10 +60,8 @@ def _skew(v):
 def tri_rows(world_geometry: jnp.ndarray, id_buffer: jnp.ndarray):
     """The four MT constant rows (det, udet, vdet, sdet), each [T, 16].
 
-    Built by pure concatenation: `.at[].set()` scatters into a [T,4,16]
-    buffer lower to [T,1,1]-shaped temps with 128x lane padding (tens of MB
-    each at dragon scale, measured) — concat keeps everything in natively
-    tiled [T,16] form, fused by XLA into the per-frame geometry pass.
+    Built by pure concatenation (no scatters), fused by XLA into the
+    per-frame geometry pass.
     """
     tris = world_geometry[id_buffer]            # [T, 12]
     v0, v1, v2 = tris[:, 0:3], tris[:, 3:6], tris[:, 6:9]
@@ -154,13 +161,24 @@ def _blocked(fn, n, block, *args):
     return out
 
 
-def traverse_mxu(w, id_buffer, origin, direction, block: int = 262144,
+def block_size(n_tris: int) -> int:
+    """Rays per block so one block's working set stays within BLOCK_BYTES
+    (a multiple of 1024, at most MAX_BLOCK)."""
+    fit = BLOCK_BYTES // (40 * max(int(n_tris), 1))
+    return int(min(MAX_BLOCK, max(1024, fit // 1024 * 1024)))
+
+
+def traverse_mxu(w, id_buffer, origin, direction, block: int | None = None,
                  edge: float = BIAS) -> Hit:
-    """Closest hit of N rays against all T triangles via MXU contraction."""
+    """Closest hit of N rays against all T triangles via one contraction
+    per ray block (`block` defaults to block_size(T))."""
+    block = block or block_size(w.shape[1] // 4)
     return _blocked(partial(_closest_hit_block, w, id_buffer, edge=edge),
                     origin.shape[0], block, origin, direction)
 
 
-def shadow_mxu(w, origin, direction, max_len, block: int = 262144) -> jnp.ndarray:
+def shadow_mxu(w, origin, direction, max_len,
+               block: int | None = None) -> jnp.ndarray:
+    block = block or block_size(w.shape[1] // 4)
     return _blocked(partial(_shadow_block, w),
                     origin.shape[0], block, origin, direction, max_len)

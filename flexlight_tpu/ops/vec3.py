@@ -1,11 +1,9 @@
 """SoA 3-vector helpers for the wavefront shading path.
 
-A vector batch is a tuple ``(x, y, z)`` of [N] float32 arrays. On TPU the
-minor axis maps to the 128 vector lanes; an AoS ``[N, 3]`` array therefore
-runs every elementwise op at 3/128 lane utilization (and XLA lowers the
-3x3 einsums over it to bf16 convolutions). Keeping components as separate
-full-lane [N] arrays makes every op dense — the profiled shading path
-dropped ~40% frame time when converted (see ops/pathtrace.py).
+A vector batch is a tuple ``(x, y, z)`` of [N] float32 arrays. An AoS
+``[N, 3]`` array puts a 3-wide axis minor, which vector hardware pads
+or strides; separate [N] arrays keep every elementwise op dense and
+contiguous, and 3x3 products become plain multiply-adds.
 
 Boundary conversions to/from [N, 3] (``stack3``/``unstack3``) are single
 relayouts; use them only at kernel and MRT-contract boundaries.

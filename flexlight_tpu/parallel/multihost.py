@@ -1,8 +1,8 @@
 """Multi-host (DCN) runtime glue: init + scene broadcast.
 
-SURVEY §2.5/§5: the reference has no distributed backend; the TPU-native
-equivalent is the standard JAX multi-host runtime — ICI collectives
-inside a slice (parallel.tile_sharding), DCN only for bringing every
+SURVEY §2.5/§5: the reference has no distributed backend; the
+equivalent here is the standard JAX multi-host runtime — device
+collectives inside a host (parallel.tile_sharding), the network only for bringing every
 process to the same scene. Scene flattening is host-side Python (OBJ
 import, BVH build, atlas packing), so in a multi-host job only process 0
 flattens and the resulting buffer pytree is broadcast; everything after

@@ -1,20 +1,20 @@
-"""Multi-chip rendering: image-tile x sample sharding over a device mesh.
+"""Multi-device rendering: image-tile x sample sharding over a device mesh.
 
 The reference is single-GPU; its per-pixel SIMT parallelism (SURVEY §2.5)
-scales across TPU chips here as a 2D `jax.sharding.Mesh`:
+scales across devices here as a 2D `jax.sharding.Mesh`:
 
 - 'tile' axis — data parallelism over horizontal image strips. Each device
   traces camera rays for its own rows against the replicated scene; strips
-  are assembled with an all_gather (ICI).
+  are assembled with an all_gather.
 - 'sample' axis — the per-pixel sample loop (glsl:610-614) split across
   devices; radiance is averaged with a psum.
 
 Post-processing (temporal + the 7x7-ish denoise stencils + FXAA/TAA) runs
-on the gathered image. The stencil radius is dynamic per pixel
-(first_filter.glsl:101), so a halo exchange needs a bound; a
-ppermute-based bounded-halo path is the planned upgrade — the all_gather
-assembly is already a full, correct multi-chip pipeline for the image
-sizes in BASELINE.json.
+on the gathered image in `frame_pipeline_sharded`. The stencil radius is
+dynamic per pixel (first_filter.glsl:101), so a halo exchange needs a
+bound: `frame_pipeline_sharded_halo` keeps post strip-sharded and
+exchanges `required_post_halo(config)` rows with its neighbours by
+ppermute.
 """
 
 from __future__ import annotations
@@ -43,21 +43,20 @@ def required_post_halo(config) -> int:
 
     The denoise blur offset is ivec2(stencil * scale) with scale bounded
     per filter (pathtracer_first_filter.glsl:101, second:50, final:56);
-    the exact per-filter maxima come from the same offset tables the
-    kernels compile from. FXAA reads at most search-step 6 of the 3x3-blur
+    the exact per-filter maxima come from post.filters.offset_table. FXAA reads at most search-step 6 of the 3x3-blur
     image = 7 rows (fxaa.js:119-130); TAA's neighborhood clamp reads 1.
     The halo pipeline is exact iff every pass reach fits its halo, and a
     one-hop ppermute bounds halo <= rows_local."""
     need = 0
     if config.filter:
-        from ..post.filter_kernel import (FINAL_BOUNDS, FIRST_BOUNDS,
-                                          SECOND_BOUNDS, _offset_table)
+        from ..post.filters import (FINAL_BOUNDS, FIRST_BOUNDS,
+                                    SECOND_BOUNDS, offset_table)
 
         if config.first_passes > 0:
-            need = max(need, _offset_table("disc37", *FIRST_BOUNDS)[1], 1)
+            need = max(need, offset_table("disc37", *FIRST_BOUNDS)[1], 1)
         if config.second_passes > 0:
-            need = max(need, _offset_table("disc36", *SECOND_BOUNDS)[1])
-        need = max(need, _offset_table("disc37", *FINAL_BOUNDS)[1])
+            need = max(need, offset_table("disc36", *SECOND_BOUNDS)[1])
+        need = max(need, offset_table("disc37", *FINAL_BOUNDS)[1])
     if config.antialiasing == "fxaa":
         need = max(need, 7)
     elif config.antialiasing == "taa":
@@ -213,7 +212,7 @@ def frame_pipeline_sharded_halo(buffers, cam_pos, view, random_seed,
     from ..models.pathtracer import _filter_chain, _quantized_mrt
     from ..ops.pathtrace import render_mrt
     from ..post.common import quantize_rgba8, split_hdr
-    from ..post.fxaa import fxaa_auto
+    from ..post.fxaa import fxaa
     from ..post.temporal import TemporalState, push_frame, temporal_average
     from .halo import with_halo
 
@@ -292,7 +291,7 @@ def frame_pipeline_sharded_halo(buffers, cam_pos, view, random_seed,
                  (alpha.reshape(rows_local, width) > 0).astype(jnp.float32)[..., None]],
                 axis=-1)
             if config.antialiasing == "fxaa":
-                display = with_halo(fxaa_auto, halo, "tile")(aa_in)[..., 0:3]
+                display = with_halo(fxaa, halo, "tile")(aa_in)[..., 0:3]
             else:
                 # TAA: the 3x3 clip-clamp is the only cross-pixel read
                 # (history averaging is pointwise), so only the clamp needs

@@ -33,9 +33,8 @@ def gather(img: jnp.ndarray, dy: jnp.ndarray, dx: jnp.ndarray) -> jnp.ndarray:
 
     img: [H, W, C]; dy/dx: [H, W, K] int32 offsets -> [H, W, K, C].
 
-    Implemented as a single flattened row-index gather: a two-axis
-    `img[yy, xx]` gather leaves TPU's vectorized gather path and runs
-    orders of magnitude slower.
+    Implemented as a single flattened row-index gather (one index per
+    tap instead of a two-axis `img[yy, xx]` gather).
     """
     h, w = img.shape[0], img.shape[1]
     yy = jnp.arange(h, dtype=jnp.int32)[:, None, None] + dy
@@ -50,7 +49,7 @@ def gather(img: jnp.ndarray, dy: jnp.ndarray, dx: jnp.ndarray) -> jnp.ndarray:
 def shifted(img: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
     """out[y, x] = img[y+dy, x+dx] with zero out-of-bounds — the static
     form of `gather` for compile-time offsets (pad + slice, which XLA
-    fuses; never touches the TPU gather path)."""
+    fuses; no gather at all)."""
     h, w = img.shape[0], img.shape[1]
     py = (max(-dy, 0), max(dy, 0))
     px = (max(-dx, 0), max(dx, 0))
@@ -63,8 +62,8 @@ def shifted(img: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
 
 def gather_multi(imgs, dy: jnp.ndarray, dx: jnp.ndarray):
     """Gather several same-shape images at the same tap coordinates with a
-    single fused row gather (gathers are ~1 row/cycle on TPU — one wide
-    gather beats one per image). Returns a tuple matching `imgs`."""
+    single fused row gather (one wide gather instead of one per image).
+    Returns a tuple matching `imgs`."""
     h, w = imgs[0].shape[0], imgs[0].shape[1]
     channels = [im.shape[-1] for im in imgs]
     stacked = jnp.concatenate([im.reshape(h, w, -1) for im in imgs], axis=-1)
@@ -84,20 +83,16 @@ def tileize_blur_key(ocolor: jnp.ndarray, ty: int = 32, tx: int = 128) -> jnp.nd
     NOISY: it accumulates material roughness along the RANDOM path
     (pathtracer_fragment.glsl:558) and stores min(acc, firstRayLength)
     (glsl:635), so rough surfaces carry a full-spread random radius per
-    pixel. Bit-exact replication forces the TPU filter kernels to visit
-    every reachable offset in every tile (docs/PERF.md). Fast mode
-    replaces the key with its per-(ty, tx)-tile mean over nonzero pixels
-    — each kernel tile then has a single-valued scale range, so the
-    banded offset tables and active-tile compaction skip all but ~37 of
-    the 705 first-filter offsets per tile. Zero keys stay exactly zero
+    pixel. Fast mode replaces the key with its per-(ty, tx)-tile mean
+    over nonzero pixels, so each tile has a single-valued blur scale
+    (the property a tiled filter kernel can exploit to skip offsets). Zero keys stay exactly zero
     (they gate the first filter's passthrough, first_filter.glsl:96-98),
     and the mean snaps to rgba8 steps like any texture store. The
     id-equality edge-stopping gates are untouched; only the blur RADIUS
     is rounded to the tile's mean radius.
 
     ocolor: [H, W, 4] quantized f32 -> same, with channel 3 tileized.
-    The (ty, tx) grid must match the kernel tiling for full effect
-    (both anchor at the image origin).
+    The (ty, tx) grid anchors at the image origin.
     """
     w = ocolor[..., 3]
     h, wd = w.shape

@@ -1,6 +1,6 @@
 """Edge-aware denoise filter passes.
 
-TPU-native counterparts of the reference's three filter kernels, ported
+Counterparts of the reference's three filter kernels, ported
 arithmetic-for-arithmetic (the id-equality gates are load-bearing for
 output parity):
 
@@ -16,6 +16,8 @@ images; the variable per-pixel radius becomes a dynamic gather.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,56 @@ STENCIL3 = np.array([
 STENCIL3_NO_CENTER = np.array([r for r in STENCIL3 if not (r[0] == 0 and r[1] == 0)],
                               dtype=np.float32)
 
+# scale bounds per filter (see the scale formulas below):
+#   first : (1 + ow)^2 * 3.5, ow in [0, 1]        -> [3.5, 14]
+#   second: 1 + 2*tanh(x), x >= 0                  -> [1, 3)
+#   final : 0.7 + 2*tanh(x), x >= 0                -> [0.7, 2.7)
+FIRST_BOUNDS = (3.5, 14.0)
+SECOND_BOUNDS = (1.0, 3.0)
+FINAL_BOUNDS = (0.7, 2.7)
+
+
+@lru_cache(maxsize=None)
+def offset_table(stencil_key: str, smin: float, smax: float):
+    """Enumerate the distinct integer offsets the scaled stencil can
+    produce for scale in [smin, smax].
+
+    Each tap's offset trunc(s * scale) is a monotone staircase of scale,
+    so a tap reaches each offset over one contiguous scale interval; the
+    table records, per offset, the taps that can reach it and the union
+    of their intervals. The sharded pipeline reads `max_radius` as the
+    pass's worst-case halo.
+
+    Returns (entries, max_radius, svals): entries = tuple of
+    (oy, ox, union_lo, union_hi, taps) sorted by (oy, ox) with taps a
+    tuple of (sy, sx, tap_lo, tap_hi); svals = distinct |s| stencil
+    magnitudes."""
+    stencil = {"disc37": STENCIL3, "disc36": STENCIL3_NO_CENTER}[stencil_key]
+    ts = np.linspace(smin, smax, 400001).astype(np.float32)
+    margin = float(ts[1] - ts[0]) * 2.0
+    offs = {}
+    max_r = 0
+    for sy, sx in stencil.astype(np.float32):
+        dy = np.trunc(sy * ts).astype(np.int64)
+        dx = np.trunc(sx * ts).astype(np.int64)
+        code = dy * 100000 + dx
+        change = np.flatnonzero(np.diff(code)) + 1
+        starts = np.concatenate([[0], change])
+        ends = np.concatenate([change - 1, [len(ts) - 1]])
+        for s0, s1 in zip(starts, ends):
+            oy, ox = int(dy[s0]), int(dx[s0])
+            lo, hi = float(ts[s0]) - margin, float(ts[s1]) + margin
+            e = offs.setdefault((oy, ox), [np.inf, -np.inf, []])
+            e[0] = min(e[0], lo)
+            e[1] = max(e[1], hi)
+            e[2].append((int(sy), int(sx), lo, hi))
+            max_r = max(max_r, abs(oy), abs(ox))
+    entries = tuple(
+        (oy, ox, lo, hi, tuple(taps))
+        for (oy, ox), (lo, hi, taps) in sorted(offs.items()))
+    svals = tuple(sorted({abs(int(s)) for s in stencil.flatten() if s != 0}))
+    return entries, max_r, svals
+
 
 def _scaled_offsets(stencil: np.ndarray, scale: jnp.ndarray):
     """ivec2(stencil * scale) per pixel: truncation toward zero like GLSL
@@ -52,9 +104,8 @@ def _scaled_offsets(stencil: np.ndarray, scale: jnp.ndarray):
 
 def vote_repair(color, ip, ocolor, ids, oid):
     """Shadow-vote repair on the static 4-neighborhood
-    (first_filter.glsl:60-94) -> (render_id, render_ip_w). Shared by the
-    jnp and Pallas-kernel first-filter paths (the offsets are static, so
-    static shifts are already the fast form everywhere)."""
+    (first_filter.glsl:60-94) -> (render_id, render_ip_w). The offsets
+    are static, so these are static shifts, not gathers."""
     center_id = ids
     center_oid = oid
 

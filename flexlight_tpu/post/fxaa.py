@@ -1,6 +1,6 @@
 """FXAA.
 
-TPU-native counterpart of the inline FXAA shader (modules/fxaa.js:7-137),
+Counterpart of the inline FXAA shader (modules/fxaa.js:7-137),
 an NVIDIA-whitepaper port: luma edge detection, 6-step edge search with
 per-pixel early-out, sub-pixel blend. The data-dependent search loop is
 unrolled with per-pixel masks; all neighborhood terms are precomputed as
@@ -9,8 +9,6 @@ shifted images so each unrolled step is a take_along_axis over a
 """
 
 from __future__ import annotations
-
-import os
 
 import jax.numpy as jnp
 
@@ -119,8 +117,7 @@ def _fxaa_core(img: jnp.ndarray) -> jnp.ndarray:
     kp = jnp.zeros((h, w), dtype=jnp.int32)
 
     def pick(stackv, k):
-        # static select-sum over the 6 search steps: take_along_axis's
-        # dynamic gather is a TPU slow path
+        # static select-sum over the 6 search steps
         out = jnp.zeros(stackv.shape[:2] + stackv.shape[3:], stackv.dtype)
         for step in range(SEARCH_STEPS):
             sel = (k == step)
@@ -154,21 +151,3 @@ def _fxaa_core(img: jnp.ndarray) -> jnp.ndarray:
 
     out = color / pixel_count[..., None]
     return jnp.where(low_contrast[..., None], img, out)
-
-
-def fxaa_auto(img: jnp.ndarray) -> jnp.ndarray:
-    """Backend dispatch: the Pallas tile kernel on TPU (post.fxaa_kernel —
-    one HBM read/write per tile vs this module's GB-scale shift stacks at
-    1080p), the XLA formulation on CPU where Pallas would run in
-    interpret mode. FLEXLIGHT_FXAA=gather|kernel overrides (read at trace
-    time; a perf A/B knob for scripts/bench_all_tpu.sh)."""
-    import jax  # deferred: this module is imported by CPU-only test paths
-
-    mode = os.environ.get("FLEXLIGHT_FXAA", "auto")
-    if mode == "auto":
-        mode = "gather" if jax.default_backend() == "cpu" else "kernel"
-    if mode == "kernel":
-        from .fxaa_kernel import fxaa_tpu
-
-        return fxaa_tpu(img, interpret=jax.default_backend() == "cpu")
-    return fxaa(img)

@@ -1,6 +1,6 @@
 """TAA.
 
-TPU-native counterpart of modules/taa.js: 9-frame history averaging with a
+Counterpart of modules/taa.js: 9-frame history averaging with a
 3x3 neighborhood min/max clip-clamp against the current frame, plus the
 zero-sum pseudo-random camera jitter sequence. The GL texture ring
 (taa.js:109-127) becomes a functional [9, H, W, 4] history array.

@@ -1,6 +1,6 @@
 """Temporal accumulation.
 
-TPU-native counterpart of the runtime-generated temporal shader
+Counterpart of the runtime-generated temporal shader
 (pathtracerWGL2.js:571-662): average up to `temporal_samples` history
 frames, gated per pixel on exact equality of the quantized id channel; a
 separate glass counter gated on the originalId channel. The reference's

@@ -1,6 +1,6 @@
 """Scene-graph flattener.
 
-TPU-native counterpart of `Scene.generateArraysFromGraph`
+Counterpart of `Scene.generateArraysFromGraph`
 (modules/scene.js:190-316). Walks the (possibly manually nested) scene
 queue depth-first and emits the packed SoA device arrays:
 

@@ -1,6 +1,6 @@
 """Scene primitives.
 
-TPU-native counterpart of the reference's primitive classes
+Counterpart of the reference's primitive classes
 (modules/scene.js:614-921). Every primitive keeps two packed per-triangle
 records that the flattener memcpys into the device arrays:
 

@@ -1,6 +1,6 @@
 """Scene container, BVH builder, and texture constructors.
 
-TPU-native counterpart of `modules/scene.js:7-488`. The scene graph is the
+Counterpart of `modules/scene.js:7-488`. The scene graph is the
 same nested-list structure as the reference (`queue` nesting IS the BVH);
 `generate_bvh` reproduces the reference's least-straddle median split
 (scene.js:62-154) with vectorized NumPy split trials, and

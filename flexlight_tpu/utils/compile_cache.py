@@ -1,26 +1,34 @@
-"""Persistent XLA/Mosaic compilation cache.
+"""Persistent XLA compilation cache.
 
-The denoise filter kernels unroll hundreds of static offsets and take
-minutes of Mosaic compile per pass shape; the cache makes that one-time
-per machine (measured: second_filter cold 100 s -> warm 24 s process
-total). Opt out with FLEXLIGHT_NO_COMPILE_CACHE=1.
+The 1080p full pipeline compiles for tens of seconds per shape; the cache
+makes that once per machine. Where `JAX_COMPILATION_CACHE_DIR` is set,
+JAX reads it itself and this module sets no other directory. Otherwise
+the cache lives at a fixed `<repo>/.jax_cache` (listed in .gitignore): the
+path is part of the cache key, so a directory that moves never hits.
 """
 
 from __future__ import annotations
 
 import os
 
-DEFAULT_DIR = os.environ.get(
-    "FLEXLIGHT_COMPILE_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache", "flexlight_jax"))
+REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_DIR = os.path.join(REPO_DIR, ".jax_cache")
 
 
-def enable_compile_cache(path: str = DEFAULT_DIR) -> None:
-    if os.environ.get("FLEXLIGHT_NO_COMPILE_CACHE", "0") not in ("", "0"):
-        return
+def cache_dir() -> str:
+    """The directory the cache uses: the environment's, else DEFAULT_DIR."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
+
+
+def enable_compile_cache() -> str:
+    """Turn the persistent cache on; returns its directory."""
     import jax
 
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path

@@ -1,6 +1,6 @@
 """Host-side math utilities (NumPy).
 
-TPU-native counterpart of the reference's `modules/math.js` (math.js:6-172).
+Counterpart of the reference's `modules/math.js` (math.js:6-172).
 These run on the host during scene construction / flattening; everything on
 the device path lives in `flexlight_tpu.ops`.
 """

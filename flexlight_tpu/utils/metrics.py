@@ -2,7 +2,7 @@
 
 The reference exposes only a 500 ms-window FPS counter
 (pathtracerWGL2.js:293-298) and ad-hoc console logging; this subsystem is
-the TPU build's structured counterpart: every rendered frame appends one
+this build's structured counterpart: every rendered frame appends one
 flat dict (timestamp, frame index, wall ms, fps window, resolution,
 traversal scheme, config knobs) to a bounded in-memory ring, optionally
 streamed to disk as JSON lines for external scraping.

@@ -7,8 +7,8 @@ rayCuboid:161-168, rayTracer:173-228, shadowTest:232-281,
 forwardTrace:283-334, reservoirSample:400-461, lightTrace:464-599,
 main:601-646). It shares NO code with flexlight_tpu's vectorized SoA
 pipeline — same input buffers, independent arithmetic path — so agreement
-between the two is evidence the TPU build computes the reference
-renderer's observable output, not merely that it is self-consistent.
+between the two is evidence the build computes the reference renderer's
+observable output, not merely that it is self-consistent.
 
 Differences from the GLSL, all deliberate and shared with the pipeline:
 - primaries are ray-cast instead of rasterized, with the relaxed edge
@@ -17,7 +17,12 @@ Differences from the GLSL, all deliberate and shared with the pipeline:
 - texture atlas sampling is NEAREST (fetch_tex_val contract) rather than
   GL's sampler filtering.
 
-Used by tests/test_reference_parity.py and scripts/parity_report.py.
+The denoise passes (pathtracer_{first,second,final}_filter.glsl) and
+the fast-mode blur-key tiling are transcribed per pixel at the end of
+this module.
+
+Used by tests/test_reference_parity.py, tests/test_post.py and
+scripts/parity_report.py.
 """
 
 from __future__ import annotations
@@ -515,4 +520,190 @@ def render(buffers, width, height, camera_pos, view_matrix, config,
             div = F(2.0) * F(np.linalg.norm(rel - cam))
             out["location_id"][y, x] = np.append(
                 np.mod(rel, div) / div, INV_255)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Denoise passes, one pixel at a time. Images are [H, W, 4] float32 with
+# rgba8-quantized values; texelFetch outside the frame reads zeros.
+# ---------------------------------------------------------------------------
+
+# 4-neighborhood (first_filter.glsl:36-40), 37-tap disc (first:50-58) and
+# the 36-tap disc without its center (second:40-48), as (dy, dx)
+FILTER_CROSS = ((-1, 0), (0, -1), (0, 1), (1, 0))
+FILTER_DISC37 = tuple(
+    (dy, dx) for dy, xs in ((-3, range(-1, 2)), (-2, range(-2, 3)),
+                            (-1, range(-3, 4)), (0, range(-3, 4)),
+                            (1, range(-3, 4)), (2, range(-2, 3)),
+                            (3, range(-1, 2)))
+    for dx in xs)
+FILTER_DISC36 = tuple(t for t in FILTER_DISC37 if t != (0, 0))
+
+
+def _texel(img, y, x):
+    h, w = img.shape[0], img.shape[1]
+    if 0 <= y < h and 0 <= x < w:
+        return img[y, x].astype(np.float32)
+    return np.zeros(img.shape[-1], np.float32)
+
+
+def _q8(v):
+    """RGBA8 store: clamp and snap to 8-bit levels."""
+    return (np.round(np.clip(v, F(0.0), F(1.0)) * F(255.0)) * INV_255).astype(F)
+
+
+def _offset(tap, scale):
+    """ivec2(stencil * scale): truncation toward zero."""
+    return (int(np.trunc(F(tap[0]) * scale)), int(np.trunc(F(tap[1]) * scale)))
+
+
+def _id_byte(v):
+    return int(np.round(v * F(255.0)))
+
+
+def first_filter_pixel(color, ip, ocolor, ids, oid, y, x):
+    c_color, c_ip, c_oc = (_texel(color, y, x), _texel(ip, y, x),
+                           _texel(ocolor, y, x))
+    c_id, c_oid = _texel(ids, y, x), _texel(oid, y, x)
+    c_light, c_shadow = divmod(_id_byte(c_id[3]), 2)
+
+    # shadow-vote repair (glsl:60-94)
+    n_id = [_texel(ids, y + dy, x + dx) for dy, dx in FILTER_CROSS]
+    n_oid = [_texel(oid, y + dy, x + dx) for dy, dx in FILTER_CROSS]
+    n_ipw = [_texel(ip, y + dy, x + dx)[3] for dy, dx in FILTER_CROSS]
+    votes = []
+    for i in range(4):
+        vote = 0
+        if n_ipw[i] == 0.0:
+            vote += 1
+            if (np.array_equal(n_id[i][:3], c_id[:3])
+                    and np.array_equal(n_oid[i], c_oid)):
+                vote += 1
+            for j in range(i + 1, 4):
+                if (np.array_equal(n_id[i][:3], n_id[j][:3])
+                        and np.array_equal(n_oid[i], n_oid[j])):
+                    vote += 1
+        votes.append(vote)
+    max_vote, id_number = votes[0], 0
+    for i in range(1, 4):
+        if votes[i] >= max_vote:
+            max_vote, id_number = votes[i], i
+    render_id, render_ipw = c_id, c_ip[3]
+    if c_oid[3] != 0.0 and c_ip[3] != 0.0:
+        render_id = n_id[id_number]
+        render_ipw = max(F(1.0) - F(np.sign(max_vote)), F(0.0))
+
+    # gated disc blur (glsl:96-117)
+    scale = F((F(1.0) + c_oc[3]) ** 2 * F(3.5))
+    acc = np.zeros(3, F)
+    count = 0
+    for tap in FILTER_DISC37:
+        oy, ox = _offset(tap, scale)
+        b_id, b_oid = _texel(ids, y + oy, x + ox), _texel(oid, y + oy, x + ox)
+        light, shadow = divmod(_id_byte(b_id[3]), 2)
+        if (np.array_equal(b_id[:3], c_id[:3]) and np.array_equal(b_oid, c_oid)
+                and (c_light != light or c_shadow == shadow)):
+            acc = acc + _texel(color, y + oy, x + ox)[:3] \
+                + _texel(ip, y + oy, x + ox)[:3] * F(256.0)
+            count += 1
+    if c_oc[3] == 0.0:
+        acc, count = c_color[:3], 1
+    mean = acc * (F(1.0) / F(max(count, 1)))
+    sgn = F(np.sign(c_color[3]))
+    new_color = sgn * np.append(np.mod(mean, F(1.0)), c_color[3])
+    new_ip = sgn * np.append(np.floor(mean) * INV_256, render_ipw)
+    return _q8(new_color), _q8(new_ip), _q8(render_id)
+
+
+def second_filter_pixel(color, ip, ocolor, ids, oid, y, x):
+    c_color, c_ip, c_oc = (_texel(color, y, x), _texel(ip, y, x),
+                           _texel(ocolor, y, x))
+    c_id, c_oid = _texel(ids, y, x), _texel(oid, y, x)
+    acc = np.append(c_color[:3] + c_ip[:3] * F(256.0), c_color[3])
+    acc_oc = c_oc.copy()
+    ipw = c_ip[3]
+    count = ocount = 1
+    scale = F(F(1.0) + F(2.0) * np.tanh(c_oc[3] + c_oid[3] * F(4.0)))
+    for tap in FILTER_DISC36:
+        oy, ox = _offset(tap, scale)
+        b_color, b_ip = _texel(color, y + oy, x + ox), _texel(ip, y + oy, x + ox)
+        b_oc = _texel(ocolor, y + oy, x + ox)
+        b_id, b_oid = _texel(ids, y + oy, x + ox), _texel(oid, y + oy, x + ox)
+        if not np.array_equal(b_oid[:3], c_oid[:3]):
+            continue
+        glassy = (min(c_oid[3], b_oid[3]) > 0.1
+                  and (np.array_equal(b_id, c_id)
+                       or max(b_ip[3], c_ip[3]) >= 0.1))
+        if glassy or np.array_equal(b_id[:3], c_id[:3]):
+            acc = acc + np.append(b_color[:3] + b_ip[:3] * F(256.0), b_color[3])
+            count += 1
+        if glassy:
+            ipw = ipw + b_ip[3]
+            acc_oc = acc_oc + b_oc
+            ocount += 1
+    inv = F(1.0) / F(count)
+    cw = c_color[3]
+    new_color = cw * np.append(np.mod(acc[:3] * inv, F(1.0)), acc[3] * inv)
+    new_ip = cw * np.append(np.floor(acc[:3] * inv) * INV_256, ipw)
+    new_oc = cw * acc_oc / F(ocount)
+    return _q8(new_color), _q8(new_ip), _q8(new_oc)
+
+
+def final_filter_pixel(color, ip, ocolor, ids, oid, y, x, hdr=True):
+    c_color, c_ip, c_oc = (_texel(color, y, x), _texel(ip, y, x),
+                           _texel(ocolor, y, x))
+    c_id, c_oid = _texel(ids, y, x), _texel(oid, y, x)
+    scale = F(F(0.7) + F(2.0) * np.tanh(c_oc[3] + c_oid[3] * F(4.0)))
+    acc = np.zeros(4, F)
+    acc_oc = np.zeros(4, F)
+    count = ocount = 0
+    for tap in FILTER_DISC37:
+        oy, ox = _offset(tap, scale)
+        b_ip, b_oid = _texel(ip, y + oy, x + ox), _texel(oid, y + oy, x + ox)
+        if not np.array_equal(b_oid[:3], c_oid[:3]):
+            continue
+        translucent = (max(b_ip[3], c_ip[3]) != 0.0
+                       and min(c_oid[3], b_oid[3]) > 0.0)
+        if translucent:
+            acc_oc = acc_oc + _texel(ocolor, y + oy, x + ox)
+            ocount += 1
+        if translucent or np.array_equal(_texel(ids, y + oy, x + ox)[:3], c_id[:3]):
+            # note: 255, not 256 (final_filter.glsl:51)
+            acc = acc + _texel(color, y + oy, x + ox) + b_ip * F(255.0)
+            count += 1
+    final = acc[:3] / F(max(count, 1))
+    o_final = c_oc[:3] if ocount == 0 else acc_oc[:3] / F(ocount)
+    final = final * o_final
+    if hdr:   # Reinhard + gamma (final_filter.glsl:61-67)
+        c = final / (final + F(1.0))
+        final = np.power(np.maximum(F(4.0) * c, F(0.0)), F(1.0 / 0.8)) \
+            / F(4.0) * F(1.3)
+    if c_color[3] <= 0.0:
+        return np.zeros(3, F)
+    return np.clip(final, F(0.0), F(1.0)).astype(F)
+
+
+def filter_image(pixel_fn, *imgs, **kw):
+    """Run a per-pixel pass over the whole frame -> tuple of images."""
+    h, w = imgs[0].shape[0], imgs[0].shape[1]
+    outs = [[pixel_fn(*imgs, y, x, **kw) for x in range(w)] for y in range(h)]
+    first = outs[0][0]
+    if isinstance(first, tuple):
+        return tuple(np.array([[px[k] for px in row] for row in outs])
+                     for k in range(len(first)))
+    return np.array(outs)
+
+
+def tileize_blur_key(ocolor, ty=32, tx=128):
+    """Fast-mode key: each nonzero originalColor.w becomes the rgba8 mean
+    of the nonzero keys in its (ty, tx) tile, anchored at the origin."""
+    out = np.array(ocolor, dtype=F)
+    h, w = out.shape[0], out.shape[1]
+    for y0 in range(0, h, ty):
+        for x0 in range(0, w, tx):
+            tile = out[y0:y0 + ty, x0:x0 + tx, 3]
+            nz = tile > 0.0
+            if nz.any():
+                mean = _q8(np.sum(tile[nz], dtype=F) / F(nz.sum()))
+                tile[nz] = mean
     return out

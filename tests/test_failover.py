@@ -1,7 +1,7 @@
 """Failure detection / clean-restart (utils.failover, SURVEY §5).
 
 The reference has nothing to port here (its only handling is a GL
-context-loss try/catch, pathtracerWGL2.js:70-77); these tests pin the TPU
+context-loss try/catch, pathtracerWGL2.js:70-77); these tests pin this
 build's subsystem: hang detection via watchdog threads, device-error
 classification, host-mirrored checkpoints that never read a dead device,
 and accumulation resume.

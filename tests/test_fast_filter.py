@@ -1,9 +1,8 @@
-"""filter_mode="fast" — the TPU-first denoise mode.
+"""filter_mode="fast" — the tile-quantized denoise mode.
 
 Fast mode replaces the per-pixel noisy blur radius key (originalColor.w,
 pathtracer_fragment.glsl:558,635) with its per-tile mean
-(post.common.tileize_blur_key) so the filter kernels' offset skipping and
-active-tile compaction engage; the id-equality edge-stopping gates are
+(post.common.tileize_blur_key); the id-equality edge-stopping gates are
 untouched. These tests pin:
 
 1. fast == compat exactly when the key is already tile-uniform (the
@@ -51,10 +50,9 @@ def _images(rng, h, w, key_mode: str):
     return color, ip, ocolor, ids, oid
 
 
-def _chain(cfg, imgs, post_scheme="gather"):
+def _chain(cfg, imgs):
     color, ip, ocolor, ids, oid = imgs
-    return np.asarray(_filter_chain(cfg, color, ip, ocolor, ids, oid,
-                                    post_scheme=post_scheme))
+    return np.asarray(_filter_chain(cfg, color, ip, ocolor, ids, oid))
 
 
 def test_fast_equals_compat_on_tile_uniform_keys():
@@ -107,33 +105,6 @@ def test_zero_keys_identical_in_both_modes():
     np.testing.assert_array_equal(
         _chain(cfg.replace(filter_mode="fast"), imgs),
         _chain(cfg.replace(filter_mode="compat"), imgs))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("mode", ["compat", "fast"])
-def test_packed_chain_matches_legacy(mode):
-    """The packed-int32 kernel chain (round 5: no [H, W, 4] float
-    intermediates between passes) must equal the legacy chain exactly —
-    packing rgba8-quantized floats is lossless and the kernels are
-    oracle-pinned per pass (test_filter_kernel), so the gather-scheme
-    chain doubles as the chain-level oracle here."""
-    from flexlight_tpu.models.pathtracer import (_filter_chain,
-                                                 _filter_chain_packed)
-
-    rng = np.random.default_rng(13)
-    imgs = _images(rng, 48, 128, "noisy")
-    cfg = cornell_config(filter=True, filter_mode=mode,
-                         first_passes=2, second_passes=3)
-    # the legacy KERNEL chain is the oracle (the gather chain differs
-    # sub-quantization-step on the unquantized final output: documented
-    # tree-reduction-order deviation of the kernels)
-    legacy = np.asarray(_filter_chain(cfg, *imgs, lift=lambda f: f,
-                                      post_scheme="kernel"))
-    packed = np.asarray(_filter_chain_packed(cfg, *imgs))
-    np.testing.assert_array_equal(legacy, packed)
-    # and the gather chain stays within a quantization step
-    gather = _chain(cfg, imgs, post_scheme="gather")
-    assert np.abs(gather - packed).max() < 1.0 / 255.0
 
 
 @pytest.mark.skipif(jax.device_count() < 4, reason="needs 4 virtual devices")

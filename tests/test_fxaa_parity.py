@@ -110,18 +110,35 @@ def fxaa_pixel(img, px, py):
     return (color / pixel_count).astype(np.float32)
 
 
-def test_fxaa_matches_oracle():
+def _img(h, w, seed, blocky=False):
+    """rgba8-quantized frames: block structure (real edges) + noise, or
+    flat blocks with specks; alpha varies."""
+    rng = np.random.default_rng(seed)
+    img = np.round(rng.uniform(0, 1, (h, w, 4)) * 255) / 255.0
+    if blocky:
+        pool = np.round(rng.uniform(0, 1, (6, 4)) * 255) / 255.0
+        blocks = rng.integers(0, 6, (-(-h // 8), -(-w // 8)))
+        img = pool[np.repeat(np.repeat(blocks, 8, 0), 8, 1)[:h, :w]].copy()
+        speck = rng.uniform(size=(h, w)) < 0.07
+        img[speck] = np.round(rng.uniform(0, 1, (speck.sum(), 4)) * 255) / 255.0
+    else:
+        img[:, : w // 2, 0:3] = np.round(img[:, : w // 2, 0:3] * 0.2 * 255) / 255.0
+    img[h // 2:, :, 3] = 1.0
+    img[: h // 2, :, 3] = np.round(img[: h // 2, :, 3])
+    return img.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,seed,blocky", [
+    ((16, 20), 31, False),
+    ((40, 72), 0, False),
+    ((48, 80), 1, True),
+    ((33, 47), 7, True),      # odd sizes: the frame border on every side
+])
+def test_fxaa_matches_oracle(shape, seed, blocky):
     from flexlight_tpu.post.fxaa import fxaa
 
-    rng = np.random.default_rng(31)
-    h, w = 16, 20
-    # rgba8-quantized input with block structure (real edges) + noise
-    img = np.round(rng.uniform(0, 1, (h, w, 4)) * 255) / 255.0
-    img[:, :8, 0:3] = np.round(img[:, :8, 0:3] * 0.2 * 255) / 255.0
-    img[8:, :, 3] = 1.0
-    img[:8, :, 3] = np.round(img[:8, :, 3])
-    img = img.astype(np.float32)
-
+    h, w = shape
+    img = _img(h, w, seed, blocky)
     got = np.asarray(fxaa(img))
     n_diff = 0
     for y in range(h):

@@ -236,28 +236,3 @@ def test_multihost_single_process_identity():
     import numpy as np
     np.testing.assert_array_equal(np.asarray(out2.geometry),
                                   np.asarray(buffers.geometry))
-
-
-@pytest.mark.slow
-def test_sharded_fused_split_matches_single_chip():
-    """Pallas kernels under shard_map: the split fused pipeline on a
-    (4 tile x 2 sample) mesh is bit-exact vs the single-chip run of the
-    same scheme (strips and sample shards recombine losslessly; measured
-    max |diff| = 0.0 on CPU interpret)."""
-    import jax.numpy as jnp
-
-    scene, camera = cornell_scene()
-    buffers = build_scene_buffers(scene)
-    cfg = cornell_config(max_reflections=2, samples_per_ray=2)
-    size = 32
-    view = jnp.asarray(camera.view_matrix(size, size))
-    pos = jnp.asarray(camera.position)
-    mesh = make_mesh(4, 2)
-    sharded = render_mrt_sharded(buffers, size, size, pos, view, cfg, 0.0,
-                                 mesh, scheme="fused_split")
-    single = render_mrt(buffers, size, size, pos, view, cfg, 0.0,
-                        scheme="fused_split")
-    for name in single._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(single, name)),
-            np.asarray(getattr(sharded, name)), err_msg=name)

@@ -126,3 +126,77 @@ def test_zero_sum_jitter():
     j = Jitter()
     dx, dy = j.next(512, 512)
     assert abs(dx) <= 0.3 / 512 + 1e-9 and abs(dy) <= 0.3 / 512 + 1e-9
+
+
+def _filter_inputs(rng, h, w):
+    """Random rgba8-quantized pass inputs with coherent id planes (so the
+    edge-stopping gates pass often enough to blur) and sparse glass."""
+    def q(shape):
+        return np.round(rng.random(shape) * 255.0).astype(np.float32) / 255.0
+
+    color, ip, ocolor = q((h, w, 4)), q((h, w, 4)), q((h, w, 4))
+    ids = np.asarray(quantize_rgba8(jnp.round(jnp.asarray(q((h, w, 4))) * 3.0) / 3.0))
+    oid = np.zeros((h, w, 4), np.float32)
+    oid[..., 3] = np.where(rng.random((h, w)) > 0.8, q((h, w)), 0.0)
+    ocolor[..., 3] = np.where(rng.random((h, w)) > 0.2, ocolor[..., 3], 0.0)
+    return color, ip, ocolor, ids, oid
+
+
+@pytest.mark.parametrize("mode", ["compat", "fast"])
+@pytest.mark.parametrize("which", ["first", "second", "final"])
+def test_filter_pass_matches_scalar_oracle(which, mode):
+    """Each gather pass against the per-pixel transcription in
+    tests/reference_oracle.py; fast mode feeds both the tile-mean key.
+    Sums run in another order, so a value on an rgba8 step may land one
+    step away: at most 1.5/255 anywhere, on at most 2% of the values."""
+    from tests import reference_oracle as oracle
+
+    rng = np.random.default_rng({"first": 1, "second": 2, "final": 3}[which])
+    imgs = _filter_inputs(rng, 36, 136)   # partial tiles on both axes
+    if mode == "fast":
+        from flexlight_tpu.post.common import tileize_blur_key
+
+        color, ip, ocolor, ids, oid = imgs
+        key = oracle.tileize_blur_key(ocolor)
+        np.testing.assert_array_equal(
+            np.asarray(tileize_blur_key(jnp.asarray(ocolor))), key)
+        imgs = (color, ip, key, ids, oid)
+    if which == "final":
+        want = (oracle.filter_image(oracle.final_filter_pixel, *imgs),)
+        got = (final_filter(*map(jnp.asarray, imgs), hdr=True),)
+    else:
+        fn = first_filter if which == "first" else second_filter
+        pixel = (oracle.first_filter_pixel if which == "first"
+                 else oracle.second_filter_pixel)
+        want = oracle.filter_image(pixel, *imgs)
+        got = fn(*map(jnp.asarray, imgs))
+    for k, (a, b) in enumerate(zip(want, got)):
+        d = np.abs(np.asarray(a) - np.asarray(b))
+        assert float(d.max()) <= 1.5 / 255.0, (k, d.max())
+        assert float((d > 1e-4).mean()) <= 0.02, (k, (d > 1e-4).mean())
+
+
+def test_offset_table_covers_all_taps():
+    """Every (tap, scale) combination maps to exactly one table offset
+    whose tap list contains it — checked densely over each filter's scale
+    range; max_radius is what the sharded pipeline's halo reads."""
+    from flexlight_tpu.post.filters import (FINAL_BOUNDS, FIRST_BOUNDS,
+                                            SECOND_BOUNDS, STENCIL3,
+                                            STENCIL3_NO_CENTER, offset_table)
+
+    for key, (lo, hi) in [("disc37", FIRST_BOUNDS),
+                          ("disc36", SECOND_BOUNDS),
+                          ("disc37", FINAL_BOUNDS)]:
+        entries, max_r, _ = offset_table(key, lo, hi)
+        table = {}
+        for oy, ox, _, _, taps in entries:
+            for sy, sx, tlo, thi in taps:
+                table.setdefault((oy, ox), set()).add((sy, sx))
+        stencil = STENCIL3 if key == "disc37" else STENCIL3_NO_CENTER
+        reach = 0
+        for s in np.linspace(lo, hi, 997, dtype=np.float32):
+            for sy, sx in stencil.astype(np.float32):
+                o = (int(np.trunc(sy * s)), int(np.trunc(sx * s)))
+                assert (int(sy), int(sx)) in table.get(o, set()), (key, s, o)
+                reach = max(reach, abs(o[0]), abs(o[1]))
+        assert max_r == reach, (key, max_r, reach)

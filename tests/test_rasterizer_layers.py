@@ -97,7 +97,7 @@ def test_opaque_scene_layered_matches_single():
     from flexlight_tpu.models.rasterizer import raster_frame
     import jax.numpy as jnp
 
-    from scenes import cornell_scene
+    from tests.scenes import cornell_scene
 
     scene, camera = cornell_scene()
     engine = FlexLight((SIZE, SIZE))

@@ -2,7 +2,7 @@
 
 `tests/reference_oracle.py` is an independent per-pixel float32
 transcription of `shaders/pathtracer_fragment.glsl`; `render_mrt` is the
-TPU pipeline (SoA wavefront, scheme-dispatched traversal). Agreement
+vectorized pipeline (SoA wavefront, scheme-dispatched traversal). Agreement
 between the two on every MRT channel is the proof that the build computes
 the reference renderer's observable output (VERDICT round-1 item 6) —
 the screenshot diff cannot serve that role because the shipped browser

@@ -83,28 +83,3 @@ def test_render_counter_rng_end_to_end():
     assert not np.array_equal(c, h)                  # different sequence
     # same geometry/lighting: images agree in the mean (MC noise only)
     assert abs(c.mean() - h.mean()) < 0.15 * max(h.mean(), 1e-6)
-
-
-def test_counter_rng_lowers_in_fused_kernel():
-    """The counter hash (bitcast + int mul/xor/logical shift) must lower
-    through Pallas->Mosaic inside the whole-frame fused kernel."""
-    from jax import export
-
-    from flexlight_tpu.ops.buffers import build_scene_buffers
-    from flexlight_tpu.ops.fused import render_mrt_fused
-
-    scene, camera = cornell_scene()
-    buffers = build_scene_buffers(scene)
-    view = jnp.asarray(camera.view_matrix(16, 16))
-    pos = jnp.asarray(camera.position)
-    import dataclasses
-    config = dataclasses.replace(cornell_config(max_reflections=2),
-                                 rng="counter")
-
-    def f(buffers, pos, view, seed):
-        return render_mrt_fused(buffers, 16, 16, pos, view, config, seed,
-                                interpret=False)
-
-    exp = export.export(jax.jit(f), platforms=["tpu"])(
-        buffers, pos, view, jnp.float32(0.0))
-    assert len(exp.mlir_module_serialized) > 0

@@ -1,3 +1,6 @@
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -7,7 +10,11 @@ import jax.numpy as jnp
 from flexlight_tpu.ops import buffers as bufmod
 from flexlight_tpu.ops.geometry import world_geometry
 from flexlight_tpu.ops.intersect import BIAS, POW32, moeller_trumbore, ray_cuboid
+from flexlight_tpu.ops.schemes import SCHEMES
 from flexlight_tpu.ops.traverse import shadow_coherent, shadow_scan, traverse_coherent, traverse_scan
+from flexlight_tpu.ops.traverse_clustered import (build_clusters, shadow_clustered,
+                                                  traverse_clustered)
+from flexlight_tpu.ops.traverse_mxu import build_tri_matrix, shadow_mxu, traverse_mxu
 from tests.scenes import cornell_scene
 
 
@@ -62,6 +69,36 @@ def _cornell_geometry():
     return np.asarray(world_geometry(buffers)), camera
 
 
+def _closest(scheme, buffers, origin, direction, edge=BIAS):
+    """Closest hit of `scheme` as render_mrt builds it (tiny packet tiles
+    and clusters so several of each run)."""
+    wg = world_geometry(buffers)
+    if scheme == "scan":
+        return traverse_scan(wg, origin, direction, edge=edge)
+    if scheme == "packet":
+        return traverse_coherent(wg, origin, direction, tile=16, edge=edge)
+    if scheme == "mxu":
+        w = build_tri_matrix(wg, buffers.id_buffer)
+        return traverse_mxu(w, buffers.id_buffer, origin, direction, edge=edge)
+    clusters = build_clusters(wg, buffers.id_buffer, cluster_size=8)
+    return traverse_clustered(clusters, origin, direction, block=64,
+                              k_cand=2, edge=edge)
+
+
+def _shadow(scheme, buffers, origin, direction, max_len):
+    wg = world_geometry(buffers)
+    if scheme == "scan":
+        return shadow_scan(wg, origin, direction, max_len)
+    if scheme == "packet":
+        return shadow_coherent(wg, origin, direction, max_len, tile=2)
+    if scheme == "mxu":
+        return shadow_mxu(build_tri_matrix(wg, buffers.id_buffer), origin,
+                          direction, max_len)
+    clusters = build_clusters(wg, buffers.id_buffer, cluster_size=8)
+    return shadow_clustered(clusters, origin, direction, max_len, block=64,
+                            k_cand=2)
+
+
 def test_moeller_trumbore_basic():
     v0 = jnp.array([0.0, 0.0, 5.0])
     v1 = jnp.array([2.0, 0.0, 5.0])
@@ -87,9 +124,11 @@ def test_ray_cuboid():
     assert not bool(miss)
 
 
-@pytest.mark.parametrize("scheme", ["scan", "packet"])
+@pytest.mark.parametrize("scheme", SCHEMES)
 def test_traversal_matches_bruteforce_cornell(scheme):
-    geometry, camera = _cornell_geometry()
+    scene, camera = cornell_scene()
+    buffers = bufmod.build_scene_buffers(scene)
+    geometry = np.asarray(world_geometry(buffers))
     rng = np.random.default_rng(3)
     n = 64
     origin = np.tile(camera.position, (n, 1)).astype(np.float32)
@@ -99,11 +138,7 @@ def test_traversal_matches_bruteforce_cornell(scheme):
 
     ref_s, ref_tri, ref_uv = brute_force_reference(geometry, origin.astype(np.float64),
                                                    direction.astype(np.float64))
-    g = jnp.asarray(geometry)
-    if scheme == "scan":
-        hit = traverse_scan(g, jnp.asarray(origin), jnp.asarray(direction))
-    else:
-        hit = traverse_coherent(g, jnp.asarray(origin), jnp.asarray(direction), tile=16)
+    hit = _closest(scheme, buffers, jnp.asarray(origin), jnp.asarray(direction))
     got_tri = np.asarray(hit.triangle)
     got_s = np.asarray(hit.suv[:, 0])
     # All rays starting inside the closed box must hit something
@@ -112,10 +147,10 @@ def test_traversal_matches_bruteforce_cornell(scheme):
     np.testing.assert_allclose(got_s, ref_s, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("scheme", ["scan", "packet"])
+@pytest.mark.parametrize("scheme", SCHEMES)
 def test_shadow_matches_expectation(scheme):
-    geometry, camera = _cornell_geometry()
-    g = jnp.asarray(geometry)
+    scene, _ = cornell_scene()
+    buffers = bufmod.build_scene_buffers(scene)
     # Point 1: high in the box, clear path. Point 2: below cube 0
     # (x in [-3,-1.5], y in [-5,-2], z in [-1,1]) -> occluded upward.
     origin = jnp.array([[-4.0, 4.0, 0.0], [-2.25, -4.8, 0.0]], dtype=jnp.float32)
@@ -123,10 +158,7 @@ def test_shadow_matches_expectation(scheme):
     d = light - origin
     max_len = jnp.linalg.norm(d, axis=-1)
     unit = d / max_len[:, None]
-    if scheme == "scan":
-        shadowed = shadow_scan(g, origin, unit, max_len)
-    else:
-        shadowed = shadow_coherent(g, origin, unit, max_len, tile=2)
+    shadowed = _shadow(scheme, buffers, origin, unit, max_len)
     # First point: unobstructed. Second point: inside/behind cube 0 -> shadowed.
     assert not bool(shadowed[0])
     assert bool(shadowed[1])
@@ -150,585 +182,116 @@ def test_world_geometry_transforms_triangles():
     np.testing.assert_allclose(v0, [-1, 0, 5], atol=1e-5)
 
 
-@pytest.mark.parametrize("sort_rays", [False, True])
-def test_sparse_traversal_matches_scan_cornell(sort_rays):
-    """Worklist kernel (interpret) vs the scan oracle on incoherent rays:
-    exercises entry-distance worklist ordering, the early-exit loop and
-    the lowest-drawable tie-break (ops/intersect_sparse.py)."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    traverse_sparse)
-    from flexlight_tpu.ops.traverse import traverse_scan
-    from tests.scenes import cornell_scene
+# --- mxu / clustered against the scan oracle --------------------------------
+# The two XLA casts `auto` dispatches between, over the same scenes, on
+# coherent primary rays, incoherent rays, alive-masked wavefronts (dead
+# rays parked at the origin looking down +z, as bounce_commit sends them)
+# and shadow any-hit segments.
 
-    scene, camera = cornell_scene()
+
+def _wave_scene():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+    import wave
+
+    engine, _ = wave.build_scene(side_length=6)
+    return engine.scene, engine.camera
+
+
+def _emissive_scene():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+    import emissive
+
+    engine = emissive.build_scene()
+    return engine.scene, engine.camera
+
+
+SCENES = {"cornell": cornell_scene, "wave": _wave_scene,
+          "emissive": _emissive_scene}
+
+
+def _scene_rays(name, kind, n=1024, seed=5):
+    scene, camera = SCENES[name]()
     buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(11)
-    n = 2048
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-
-    ref = traverse_scan(jnp.asarray(geometry), jnp.asarray(origin),
-                        jnp.asarray(direction))
-    got = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                          jnp.asarray(direction), interpret=True,
-                          sort_rays=sort_rays)
-    # sparse returns drawable indices; map to geometry slots
-    got_tri = np.asarray(buffers.id_buffer)[np.asarray(got.triangle)]
-    got_tri = np.where(np.asarray(got.triangle) < 0, -1, got_tri)
-    ref_tri = np.asarray(ref.triangle)
-    got_s = np.asarray(got.suv)[:, 0]
-    ref_s = np.asarray(ref.suv)[:, 0]
-    # rays through shared edges tie in s; which triangle wins then depends
-    # on sub-ulp differences between the matmul and elementwise MT
-    # formulations — accept a different triangle at the same distance
-    agree = got_tri == ref_tri
-    tied = ((got_tri >= 0) & (ref_tri >= 0)
-            & (np.abs(got_s - ref_s) <= 1e-3 + 1e-3 * np.abs(ref_s)))
-    assert np.all(agree | tied), np.flatnonzero(~(agree | tied))[:10]
-    assert (~agree).mean() <= 0.005
-    hit = agree & (ref_tri >= 0)
-    np.testing.assert_allclose(got_s[hit], ref_s[hit], rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.parametrize("sort_rays", [False, True])
-def test_sparse_shadow_matches_scan_cornell(sort_rays):
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse)
-    from flexlight_tpu.ops.traverse import shadow_scan
-    from tests.scenes import cornell_scene
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, _ = build_w4_tiled(geometry, buffers.id_buffer,
-                                        x6=False)
-
-    rng = np.random.default_rng(12)
-    n = 2048
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    target = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    d = target - origin
-    max_len = np.linalg.norm(d, axis=-1)
-    unit = (d / max_len[:, None]).astype(np.float32)
-
-    ref = shadow_scan(jnp.asarray(geometry), jnp.asarray(origin),
-                      jnp.asarray(unit), jnp.asarray(max_len))
-    got = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                        jnp.asarray(unit), jnp.asarray(max_len),
-                        interpret=True, sort_rays=sort_rays)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-@pytest.mark.slow
-def test_sparse_sort_hint_matches_unhinted():
-    """The prev-tile locality sort (sort_spatial prev_tri path) is a pure
-    permutation: hinted and unhinted traversals must return identical
-    hits for every ray."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse,
-                                                    traverse_sparse)
-    from tests.scenes import cornell_scene
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(13)
-    n = 2048
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    hint = jnp.asarray(rng.integers(0, buffers.id_buffer.shape[0], n),
-                       dtype=jnp.int32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.7)
-
-    base = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=True, alive=alive)
-    hinted = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                             jnp.asarray(direction), interpret=True,
-                             sort_rays=True, alive=alive, sort_hint=hint)
-    np.testing.assert_array_equal(np.asarray(hinted.triangle),
-                                  np.asarray(base.triangle))
-    np.testing.assert_array_equal(np.asarray(hinted.suv),
-                                  np.asarray(base.suv))
-
-    max_len = jnp.asarray(rng.uniform(0.5, 8.0, n).astype(np.float32))
-    s_base = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), max_len, interpret=True,
-                           sort_rays=True, alive=alive)
-    s_hint = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), max_len, interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint)
-    np.testing.assert_array_equal(np.asarray(s_hint), np.asarray(s_base))
-
-
-def test_nearest2_key_kernel_matches_xla():
-    """The Pallas nearest2 sort-key kernel (interpret mode) must agree
-    bit-exactly with the jnp formulation callers use on CPU — including
-    dead rays, no-candidate rays, and padded supertile boxes."""
-    from flexlight_tpu.ops.intersect_sparse import (_nearest2_key_xla,
-                                                    nearest2_key)
-
-    rng = np.random.default_rng(21)
-    k = 41                                    # pads to 48 clusters, 6 boxes
-    centers = rng.uniform(-10, 10, (k, 3)).astype(np.float32)
-    half = rng.uniform(0.2, 3.0, (k, 3)).astype(np.float32)
-    amin = jnp.asarray(centers - half)
-    amax = jnp.asarray(centers + half)
-
-    n = 3000                                  # pads to 3 ray tiles of 1024
-    origin = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    direction[::17] = np.array([0.0, 1.0, 0.0])     # axis-aligned zeros
-    max_len = np.full(n, POW32, dtype=np.float32)
-    max_len[rng.uniform(size=n) < 0.3] = 0.0        # dead rays
-    max_len[2048:] = 0.0    # a FULLY dead ray tile (all-dead fast path)
-
-    ref = _nearest2_key_xla(amin, amax, jnp.asarray(origin),
-                            jnp.asarray(direction), jnp.asarray(max_len))
-    got = nearest2_key(amin, amax, jnp.asarray(origin),
-                       jnp.asarray(direction), jnp.asarray(max_len),
-                       interpret=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_flags_sparse_dead_tile_matches_oracle():
-    """The flags kernel's all-dead-tile fast path (round 5) must be
-    value-exact vs the jnp oracle: POW32 everywhere for the dead tile,
-    untouched elsewhere."""
-    from flexlight_tpu.ops.geometry import world_geometry
-    from flexlight_tpu.ops.intersect_sparse import (_tmins_xla,
-                                                    build_w4_tiled,
-                                                    flags_sparse)
-    from flexlight_tpu.ops.buffers import build_scene_buffers
-    from tests.scenes import cornell_scene
-
-    scene, camera = cornell_scene()
-    buffers = build_scene_buffers(scene)
-    wg = world_geometry(buffers)
-    _, amin, amax, _ = build_w4_tiled(wg, buffers.id_buffer, tri_tile=8)
-    rng = np.random.default_rng(3)
-    n = 512                                    # 4 ray tiles of 128
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    max_len = np.full(n, POW32, dtype=np.float32)
-    max_len[128:256] = 0.0                     # tile 1 fully dead
-    got = flags_sparse(amin, amax, jnp.asarray(origin),
-                       jnp.asarray(direction), jnp.asarray(max_len),
-                       tri_tile=8, ray_tile=128, interpret=True)
-    wt = got.shape[1]
-    ref = _tmins_xla(amin, amax, jnp.asarray(origin),
-                     jnp.asarray(direction), jnp.asarray(max_len),
-                     4, wt, 128)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-@pytest.mark.parametrize("ray_tile", [1024, 256])
-def test_sparse_nearest2_sort_matches_prevtile(ray_tile):
-    """sort_mode='nearest2' is a pure reordering: traversal and shadow
-    results must be identical to the prevtile sort for every ray —
-    also at the smaller bounce ray tile (BOUNCE_RT sweep values)."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse,
-                                                    traverse_sparse)
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(22)
-    n = 2048
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    hint = jnp.asarray(rng.integers(0, buffers.id_buffer.shape[0], n),
-                       dtype=jnp.int32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.7)
-
-    base = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint,
-                           ray_tile=ray_tile)
-    near = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint,
-                           sort_mode="nearest2", ray_tile=ray_tile)
-    np.testing.assert_array_equal(np.asarray(near.triangle),
-                                  np.asarray(base.triangle))
-    np.testing.assert_array_equal(np.asarray(near.suv),
-                                  np.asarray(base.suv))
-
-    max_len = jnp.asarray(rng.uniform(0.5, 8.0, n).astype(np.float32))
-    s_base = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), max_len, interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint,
-                           ray_tile=ray_tile)
-    s_near = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), max_len, interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint,
-                           sort_mode="nearest2", ray_tile=ray_tile)
-    np.testing.assert_array_equal(np.asarray(s_near), np.asarray(s_base))
-
-
-def test_sparse_history_sort_matches_prevtile():
-    """sort_mode='history' (frame-coherent hint with -1 = unknown) is a
-    pure reordering too: identical results to prevtile, including rays
-    whose prediction is unknown (-1) or stale (random hints here)."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    traverse_sparse)
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(37)
-    n = 2048
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    # history predictions: -1 (unknown) for a third of rays, random
-    # (stale) triangles otherwise — keys must never change results
-    hint = rng.integers(-1, buffers.id_buffer.shape[0], n).astype(np.int32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.7)
-
-    base = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=True, alive=alive,
-                           sort_hint=jnp.maximum(jnp.asarray(hint), 0))
-    hist = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=True, alive=alive,
-                           sort_hint=jnp.asarray(hint),
-                           sort_mode="history")
-    np.testing.assert_array_equal(np.asarray(hist.triangle),
-                                  np.asarray(base.triangle))
-    np.testing.assert_array_equal(np.asarray(hist.suv),
-                                  np.asarray(base.suv))
-
-
-@pytest.mark.parametrize("sort_mode", ["prevtile", "nearest2"])
-def test_pair_sparse_matches_separate_casts(sort_mode):
-    """The merged shadow+bounce cast (pair_sparse — one shared wavefront
-    permutation) must be bit-identical to separate shadow_sparse +
-    traverse_sparse casts: sort keys only group work."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    pair_sparse,
-                                                    shadow_sparse,
-                                                    traverse_sparse)
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(31)
-    n = 2048
-    so = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    bo = (so + rng.normal(scale=1e-3, size=(n, 3))).astype(np.float32)
-    sd = rng.normal(size=(n, 3)).astype(np.float32)
-    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
-    bd = rng.normal(size=(n, 3)).astype(np.float32)
-    bd /= np.linalg.norm(bd, axis=-1, keepdims=True)
-    sml = jnp.asarray(rng.uniform(0.5, 8.0, n).astype(np.float32))
-    hint = jnp.asarray(rng.integers(0, buffers.id_buffer.shape[0], n),
-                       dtype=jnp.int32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.7)
-    so, sd, bo, bd = map(jnp.asarray, (so, sd, bo, bd))
-
-    ref_shadow = shadow_sparse(w4t, amin, amax, so, sd, sml,
-                               interpret=True, sort_rays=True, alive=alive,
-                               sort_hint=hint, sort_mode=sort_mode)
-    ref_hit = traverse_sparse(w4t, w4f, amin, amax, bo, bd, interpret=True,
-                              sort_rays=True, alive=alive, sort_hint=hint,
-                              sort_mode=sort_mode)
-    got_hit, got_shadow = pair_sparse(
-        w4t, w4f, amin, amax, so, sd, sml, bo, bd, interpret=True,
-        sort_rays=True, shadow_alive=alive, bounce_alive=alive,
-        sort_hint=hint, sort_mode=sort_mode)
-    np.testing.assert_array_equal(np.asarray(got_shadow),
-                                  np.asarray(ref_shadow))
-    np.testing.assert_array_equal(np.asarray(got_hit.triangle),
-                                  np.asarray(ref_hit.triangle))
-    np.testing.assert_array_equal(np.asarray(got_hit.suv),
-                                  np.asarray(ref_hit.suv))
-
-
-def test_nearest2_key_lowers_for_tpu():
-    """Cross-platform export runs the nearest2 key kernel through the
-    full Pallas->Mosaic lowering on a CPU host (no chip needed)."""
-    from jax import export
-
-    from flexlight_tpu.ops.intersect_sparse import nearest2_key
-
-    rng = np.random.default_rng(23)
-    k = 96
-    centers = rng.uniform(-10, 10, (k, 3)).astype(np.float32)
-    half = rng.uniform(0.2, 3.0, (k, 3)).astype(np.float32)
-
-    def f(amin, amax, o, d, ml):
-        return nearest2_key(amin, amax, o, d, ml)
-
-    n = 2048
-    exp = export.export(jax.jit(f), platforms=["tpu"])(
-        jnp.asarray(centers - half), jnp.asarray(centers + half),
-        jnp.zeros((n, 3), jnp.float32), jnp.ones((n, 3), jnp.float32),
-        jnp.full((n,), POW32, jnp.float32))
-    assert len(exp.mlir_module_serialized) > 0
-
-
-@pytest.mark.slow
-def test_sparse_sort_env_knob_render(monkeypatch):
-    """FLEXLIGHT_SPARSE_SORT=nearest2 routes through render_mrt's sparse
-    scheme unchanged (bit-exact vs the default sort)."""
-    from flexlight_tpu import Config
-    import flexlight_tpu.ops.pathtrace as pt
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    config = Config(samples_per_ray=1, max_reflections=2, temporal=False,
-                    filter=False, antialiasing=None)
-    view = jnp.asarray(camera.view_matrix(16, 16))
-    pos = jnp.asarray(camera.position)
-
-    base = pt.render_mrt(buffers, 16, 16, pos, view, config,
-                         jnp.float32(0.0), scheme="sparse")
-    monkeypatch.setenv("FLEXLIGHT_SPARSE_SORT", "nearest2")
-    got = pt.render_mrt(buffers, 16, 16, pos, view, config,
-                        jnp.float32(0.0), scheme="sparse")
-    for a, b in zip(jax.tree.leaves(base), jax.tree.leaves(got)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    monkeypatch.setenv("FLEXLIGHT_SPARSE_SUBTILE", "4")
-    got2 = pt.render_mrt(buffers, 16, 16, pos, view, config,
-                         jnp.float32(0.0), scheme="sparse")
-    for a, b in zip(jax.tree.leaves(base), jax.tree.leaves(got2)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("subtile,ray_tile", [
-    (4, 256),
-    # one representative in the fast tier; the rest re-prove the same
-    # scheduling-only equivalence at other shapes
-    pytest.param(2, 256, marks=pytest.mark.slow),
-    pytest.param(8, 128, marks=pytest.mark.slow),
-    pytest.param(16, 128, marks=pytest.mark.slow),
-])
-def test_sparse_subtile_matches_single(subtile, ray_tile):
-    """Subtiling (several ray tiles per Mosaic program) is a pure
-    scheduling change: results must be bit-identical to subtile=1 at the
-    same ray_tile, for closest-hit and any-hit, including padding tails
-    (n not a multiple of ray_tile*subtile)."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse,
-                                                    traverse_sparse)
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(31)
-    n = 2048 + 300                         # forces a ragged padding tail
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    hint = jnp.asarray(rng.integers(0, buffers.id_buffer.shape[0], n),
-                       dtype=jnp.int32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.7)
-
-    base = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint,
-                           ray_tile=ray_tile)
-    got = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                          jnp.asarray(direction), interpret=True,
-                          sort_rays=True, alive=alive, sort_hint=hint,
-                          ray_tile=ray_tile, subtile=subtile)
-    np.testing.assert_array_equal(np.asarray(got.triangle),
-                                  np.asarray(base.triangle))
-    np.testing.assert_array_equal(np.asarray(got.suv),
-                                  np.asarray(base.suv))
-
-    max_len = jnp.asarray(rng.uniform(0.5, 8.0, n).astype(np.float32))
-    s_base = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), max_len, interpret=True,
-                           sort_rays=True, alive=alive, sort_hint=hint,
-                           ray_tile=ray_tile)
-    s_got = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                          jnp.asarray(direction), max_len, interpret=True,
-                          sort_rays=True, alive=alive, sort_hint=hint,
-                          ray_tile=ray_tile, subtile=subtile)
-    np.testing.assert_array_equal(np.asarray(s_got), np.asarray(s_base))
-
-
-def test_sparse_subtile_lowers_for_tpu():
-    """Subtiled closest-hit + any-hit kernels lower through Mosaic."""
-    from jax import export
-
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse,
-                                                    traverse_sparse)
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer)
-
-    n = 4096
-
-    def f(o, d, ml):
-        hit = traverse_sparse(w4t, w4f, amin, amax, o, d, sort_rays=True,
-                              sort_hint=jnp.zeros(n, jnp.int32),
-                              ray_tile=256, subtile=4)
-        sh = shadow_sparse(w4t, amin, amax, o, d, ml, sort_rays=True,
-                           sort_hint=jnp.zeros(n, jnp.int32),
-                           ray_tile=256, subtile=4)
-        return hit.suv, hit.triangle, sh
-
-    exp = export.export(jax.jit(f), platforms=["tpu"])(
-        jnp.zeros((n, 3), jnp.float32), jnp.ones((n, 3), jnp.float32),
-        jnp.full((n,), 8.0, jnp.float32))
-    assert len(exp.mlir_module_serialized) > 0
-
-
-def test_nearest2_key_multichunk_merge():
-    """Force a small k_chunk so the cross-chunk two-min merge runs (the
-    path production only hits above 512 supertiles) and compare against
-    the single-chunk kernel result. Box entries are randomized so ties
-    are absent and the merge order is fully determined."""
-    from flexlight_tpu.ops.intersect_sparse import nearest2_key
-
-    rng = np.random.default_rng(33)
-    k = 255                                # 32 supertiles of 8 clusters
-    centers = rng.uniform(-10, 10, (k, 3)).astype(np.float32)
-    half = rng.uniform(0.2, 2.0, (k, 3)).astype(np.float32)
-    amin = jnp.asarray(centers - half)
-    amax = jnp.asarray(centers + half)
-
-    n = 2048
-    origin = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    max_len = np.full(n, POW32, dtype=np.float32)
-    max_len[rng.uniform(size=n) < 0.2] = 0.0
-
-    one = nearest2_key(amin, amax, jnp.asarray(origin),
-                       jnp.asarray(direction), jnp.asarray(max_len),
-                       interpret=True)
-    multi = nearest2_key(amin, amax, jnp.asarray(origin),
-                         jnp.asarray(direction), jnp.asarray(max_len),
-                         interpret=True, k_chunk=8)
-    np.testing.assert_array_equal(np.asarray(multi), np.asarray(one))
-
-
-@pytest.mark.parametrize("sort_rays,sort_mode,hinted", [
-    (False, "prevtile", False),
-    # unhinted-sort x row-path is the costliest variant and adds no
-    # distinct code path over the hinted one: slow tier
-    pytest.param(True, "prevtile", False, marks=pytest.mark.slow),
-    (True, "prevtile", True),
-    (True, "nearest2", True),
-])
-def test_sparse_soa_matches_row_path(sort_rays, sort_mode, hinted):
-    """SoA entry points (carry-sorted wavefront + channel-major features,
-    ops/intersect_sparse.py traverse_sparse_soa/shadow_sparse_soa) must
-    match the row-layout path exactly: the sort only groups work and the
-    exact-suv tail evaluates the same expressions."""
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse,
-                                                    shadow_sparse_soa,
-                                                    traverse_sparse,
-                                                    traverse_sparse_soa)
-    from tests.scenes import cornell_scene
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer,
-                                          x6=False)
-
-    rng = np.random.default_rng(17)
-    n = 2048
-    origin = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    direction = rng.normal(size=(n, 3)).astype(np.float32)
-    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.7)
-    hint = (jnp.asarray(rng.integers(0, buffers.id_buffer.shape[0], n),
-                        dtype=jnp.int32) if hinted else None)
-    o3 = tuple(jnp.asarray(origin[:, c]) for c in range(3))
-    d3 = tuple(jnp.asarray(direction[:, c]) for c in range(3))
-
-    base = traverse_sparse(w4t, w4f, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), interpret=True,
-                           sort_rays=sort_rays, alive=alive,
-                           sort_hint=hint, sort_mode=sort_mode)
-    s, u, v, tri = traverse_sparse_soa(w4t, w4f, amin, amax, o3, d3,
-                                       interpret=True, sort_rays=sort_rays,
-                                       alive=alive, sort_hint=hint,
-                                       sort_mode=sort_mode)
-    np.testing.assert_array_equal(np.asarray(tri),
-                                  np.asarray(base.triangle))
-    got_suv = np.stack([np.asarray(s), np.asarray(u), np.asarray(v)],
-                       axis=-1)
-    np.testing.assert_allclose(got_suv, np.asarray(base.suv),
-                               rtol=1e-6, atol=1e-6)
-
-    max_len = jnp.asarray(rng.uniform(0.5, 8.0, n).astype(np.float32))
-    s_base = shadow_sparse(w4t, amin, amax, jnp.asarray(origin),
-                           jnp.asarray(direction), max_len, interpret=True,
-                           sort_rays=sort_rays, alive=alive,
-                           sort_hint=hint, sort_mode=sort_mode)
-    s_soa = shadow_sparse_soa(w4t, amin, amax, o3, d3, max_len,
-                              interpret=True, sort_rays=sort_rays,
-                              alive=alive, sort_hint=hint,
-                              sort_mode=sort_mode)
-    np.testing.assert_array_equal(np.asarray(s_soa), np.asarray(s_base))
-
-
-def test_sparse_soa_lowers_for_tpu():
-    """SoA sparse casts (carry sort + channel-major features) lower
-    through Mosaic."""
-    from jax import export
-
-    from flexlight_tpu.ops.intersect_sparse import (build_w4_tiled,
-                                                    shadow_sparse_soa,
-                                                    traverse_sparse_soa)
-
-    scene, camera = cornell_scene()
-    buffers = bufmod.build_scene_buffers(scene)
-    geometry = world_geometry(buffers)
-    w4t, amin, amax, w4f = build_w4_tiled(geometry, buffers.id_buffer)
-
-    n = 4096
-
-    def f(o3, d3, ml):
-        s, u, v, tri = traverse_sparse_soa(
-            w4t, w4f, amin, amax, o3, d3, sort_rays=True,
-            sort_hint=jnp.zeros(n, jnp.int32), sort_mode="nearest2",
-            ray_tile=256, subtile=4)
-        sh = shadow_sparse_soa(
-            w4t, amin, amax, o3, d3, ml, sort_rays=True,
-            sort_hint=jnp.zeros(n, jnp.int32), sort_mode="nearest2",
-            ray_tile=256, subtile=4)
-        return s, u, v, tri, sh
-
-    zeros = tuple(jnp.zeros(n, jnp.float32) for _ in range(3))
-    ones = tuple(jnp.ones(n, jnp.float32) for _ in range(3))
-    exp = export.export(jax.jit(f), platforms=["tpu"])(
-        zeros, ones, jnp.full((n,), 8.0, jnp.float32))
-    assert len(exp.mlir_module_serialized) > 0
+    rng = np.random.default_rng(seed)
+    wg = np.asarray(world_geometry(buffers))
+    tris = wg[np.asarray(buffers.id_buffer)][:, 0:9].reshape(-1, 3)
+    lo, hi = tris.min(axis=0), tris.max(axis=0)
+    if kind == "primary":
+        side = int(np.sqrt(n))
+        view = jnp.asarray(camera.view_matrix(side, side))
+        from flexlight_tpu.ops.pathtrace import camera_rays
+
+        o, d, _ = camera_rays(side, side, jnp.asarray(camera.position), view)
+        return buffers, o, d, None
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    alive = None
+    if kind == "masked":
+        alive = rng.uniform(size=n) < 0.6
+        o = np.where(alive[:, None], o, 0.0).astype(np.float32)
+        d = np.where(alive[:, None], d, [0.0, 0.0, 1.0]).astype(np.float32)
+    return buffers, jnp.asarray(o), jnp.asarray(d), alive
+
+
+def _on_window_edge(suv):
+    """Hits on the u <= 1 / u + v <= 1 edges of the accept window, which
+    stays exact even for primaries: where two faces meet at a crease an
+    ulp decides whether either accepts the ray."""
+    u, v = suv[:, 1], suv[:, 2]
+    return np.minimum(1.0 - u, 1.0 - u - v) < 1e-4
+
+
+def _assert_hits_match(ref, got, alive=None):
+    """Same triangle, or another at the same distance (a shared-edge or
+    coplanar tie, which each formulation breaks its own way), or a miss
+    where the other side hit exactly on a crease."""
+    rt, gt = np.asarray(ref.triangle), np.asarray(got.triangle)
+    rsuv, gsuv = np.asarray(ref.suv), np.asarray(got.suv)
+    if alive is not None:
+        rt, gt, rsuv, gsuv = rt[alive], gt[alive], rsuv[alive], gsuv[alive]
+    rs, gs = rsuv[:, 0], gsuv[:, 0]
+    err = np.abs(gs - rs) / np.maximum(np.abs(rs), 1.0)
+    same = rt == gt
+    tie = (rt >= 0) & (gt >= 0) & (err <= 1e-3)
+    crease = (((rt < 0) & _on_window_edge(gsuv))
+              | ((gt < 0) & _on_window_edge(rsuv)))
+    assert np.all(same | tie | crease), np.flatnonzero(~(same | tie | crease))[:10]
+    assert crease.mean() <= 0.005
+    hit = same & (rt >= 0)
+    assert hit.any()
+    np.testing.assert_array_less(err[hit], 1e-3)
+    np.testing.assert_allclose(gsuv[hit, 1:3], rsuv[hit, 1:3], atol=1e-3)
+
+
+@pytest.mark.parametrize("scheme", ["mxu", "clustered"])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+@pytest.mark.parametrize("kind", ["primary", "incoherent", "masked"])
+def test_xla_cast_matches_scan(scheme, scene, kind):
+    buffers, o, d, alive = _scene_rays(scene, kind)
+    # primaries take the relaxed edge window render_mrt gives them
+    edge = -BIAS if kind == "primary" else BIAS
+    ref = _closest("scan", buffers, o, d, edge=edge)
+    got = _closest(scheme, buffers, o, d, edge=edge)
+    _assert_hits_match(ref, got, alive)
+
+
+@pytest.mark.parametrize("scheme", ["mxu", "clustered"])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_xla_shadow_matches_scan(scheme, scene):
+    buffers, o, _, _ = _scene_rays(scene, "incoherent", seed=9)
+    rng = np.random.default_rng(10)
+    target = np.asarray(o)[rng.permutation(o.shape[0])]
+    seg = target - np.asarray(o)
+    max_len = np.linalg.norm(seg, axis=-1)
+    keep = max_len > 1e-3
+    unit = seg[keep] / max_len[keep, None]
+    o, unit, max_len = (jnp.asarray(np.asarray(o)[keep]),
+                        jnp.asarray(unit.astype(np.float32)),
+                        jnp.asarray(max_len[keep].astype(np.float32)))
+    ref = np.asarray(_shadow("scan", buffers, o, unit, max_len))
+    got = np.asarray(_shadow(scheme, buffers, o, unit, max_len))
+    assert 0.01 < ref.mean() < 0.99      # both outcomes occur
+    # fp formulation differences may flip a segment ending exactly on a
+    # surface; demand near-total agreement
+    assert (got == ref).mean() >= 0.995, (got != ref).sum()

@@ -1,4 +1,8 @@
-"""Clustered-traversal equivalence vs the scan oracle on a real mesh."""
+"""Clustered-traversal equivalence vs the scan oracle on a generated
+mesh (the wave example's pillar grid: 434 triangles, many clusters)."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -6,31 +10,28 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from flexlight_tpu import Camera, Scene
 from flexlight_tpu.ops import buffers as bufmod
 from flexlight_tpu.ops.geometry import world_geometry
 from flexlight_tpu.ops.traverse import shadow_scan, traverse_scan
 from flexlight_tpu.ops.traverse_clustered import (
     Clusters, build_clusters, shadow_clustered, traverse_clustered)
 
-MONKE = "/root/reference/objects/monke.obj"
-
 
 @pytest.fixture(scope="module")
-def monke():
-    import os
+def mesh():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+    import wave
 
-    if not os.path.exists(MONKE):
-        pytest.skip("reference assets not mounted")
-    scene = Scene()
-    obj = scene.import_obj(MONKE)
-    scene.queue.push(obj)
-    buffers = bufmod.build_scene_buffers(scene)
+    from flexlight_tpu.scene.transform import reset_global_registry
+
+    reset_global_registry()
+    engine, _ = wave.build_scene(side_length=6)
+    buffers = bufmod.build_scene_buffers(engine.scene)
     wg = world_geometry(buffers)
     return buffers, wg
 
 
-def _rays(n, seed=0, origin_base=(0.0, 0.0, -4.0)):
+def _rays(n, seed=0, origin_base=(3.0, 6.0, -4.0)):
     rng = np.random.default_rng(seed)
     origin = np.tile(np.asarray(origin_base, np.float32), (n, 1))
     origin += rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
@@ -41,8 +42,8 @@ def _rays(n, seed=0, origin_base=(0.0, 0.0, -4.0)):
 
 
 @pytest.mark.slow
-def test_clustered_matches_scan_coherent(monke):
-    buffers, wg = monke
+def test_clustered_matches_scan_coherent(mesh):
+    buffers, wg = mesh
     o, d = _rays(256)
     ref = traverse_scan(wg, o, d, chunk=32)
     clusters = build_clusters(wg, buffers.id_buffer, cluster_size=32)
@@ -53,9 +54,9 @@ def test_clustered_matches_scan_coherent(monke):
                                rtol=1e-3, atol=1e-3)
 
 
-def test_clustered_overflow_fallback(monke):
+def test_clustered_overflow_fallback(mesh):
     """Tiny k_cand forces the full-scan fallback path; results identical."""
-    buffers, wg = monke
+    buffers, wg = mesh
     o, d = _rays(128, seed=1)
     ref = traverse_scan(wg, o, d, chunk=32)
     clusters = build_clusters(wg, buffers.id_buffer, cluster_size=32)
@@ -63,8 +64,8 @@ def test_clustered_overflow_fallback(monke):
     np.testing.assert_array_equal(np.asarray(got.triangle), np.asarray(ref.triangle))
 
 
-def test_clustered_shadow_matches_scan(monke):
-    buffers, wg = monke
+def test_clustered_shadow_matches_scan(mesh):
+    buffers, wg = mesh
     o, d = _rays(256, seed=2)
     max_len = jnp.full((256,), 10.0, dtype=jnp.float32)
     ref = shadow_scan(wg, o, d, max_len, chunk=32)
@@ -73,8 +74,8 @@ def test_clustered_shadow_matches_scan(monke):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
-def test_cluster_build_shapes(monke):
-    buffers, wg = monke
+def test_cluster_build_shapes(mesh):
+    buffers, wg = mesh
     clusters = build_clusters(wg, buffers.id_buffer, cluster_size=64)
     t = buffers.id_buffer.shape[0]
     k = -(-t // 64)
